@@ -1,20 +1,18 @@
 #!/usr/bin/env python3
-"""Measured communication volumes + modeled weak-scaling efficiency.
+"""Per-iteration communication volumes of the distributed CG programs.
 
-Runs on the virtual 8-device CPU mesh with the SAME per-device shard
-shapes as the north-star target topology (weak scaling keeps per-device
-work constant, and per-device collective volumes are independent of the
-device count), compiles the distributed CG programs, and counts every
-collective with its exact byte size from the optimized HLO
-(tpu_sparse.dist.comm_model). The only modeled quantities are the v5e
-link speeds; everything else is measured program structure.
+Runs on the virtual CPU mesh, compiles the distributed CG programs for a
+27-point 3-D Poisson system with a per-device slab of nx³ rows, and counts
+every collective with its exact byte size from the optimized HLO
+(tpu_sparse.dist.comm_model): the stencil (DIA) system in halo mode, and
+the same system as general CSR. No time is modeled: collective times come
+only from runs on real cards.
 
-Prints ONE JSON line consumed by bench.py's weak_scaling block.
+Prints ONE JSON line.
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-      python bench_tools/comm_model.py --nx 96 --target-devices 16 \
-      --mesh-dims 4 4
+      python bench_tools/comm_model.py --nx 96
 """
 
 from __future__ import annotations
@@ -32,157 +30,57 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--nx", type=int, default=96,
                     help="per-device subgrid edge (rows/device = nx^3)")
-    ap.add_argument("--target-devices", type=int, default=16,
-                    help="north-star topology size (2 v5e hosts = 16)")
-    ap.add_argument("--mesh-dims", type=int, nargs="+", default=[4, 4],
-                    help="physical torus dims of the target slice")
     ap.add_argument("--general-nx", type=int, default=48,
-                    help="feasible slab edge for the general-CSR "
-                         "collective measurement (comm scales to --nx)")
-    ap.add_argument("--cwell-gnnz", type=float, default=39.5,
-                    help="measured CWELL general-SpMV rate (Gnnz/s) for "
-                         "the target-shard compute model")
+                    help="per-device slab edge for the general-CSR "
+                         "measurement")
     args = ap.parse_args(argv)
 
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                     "/tmp/jax_cache"))
+    from tpu_sparse.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp
 
     from tpu_sparse.dist import make_row_mesh
-    from tpu_sparse.dist.comm_model import (
-        HardwareModel,
-        comm_time_per_iteration,
-        measure_collectives,
-        modeled_weak_scaling_efficiency,
-        spmv_local_hbm_bytes,
-    )
+    from tpu_sparse.dist.comm_model import measure_collectives
     from tpu_sparse.dist.partition import shard_vector
     from tpu_sparse.dist.solvers import _matvec_builder, _shard_and_resolve
     from tpu_sparse.solvers.krylov import cg_full
     from tpu_sparse.solvers.pipelined import cg_sr_full
     from tpu_sparse.sparse import generators
+    from tpu_sparse.sparse.convert import to_csr
 
-    n_meas = jax.device_count()
+    n_dev = jax.device_count()
+    mesh = make_row_mesh(n_dev)
+    out = {"measured_on": f"{n_dev}-device CPU mesh (virtual)",
+           "per_device_rows": args.nx ** 3}
+
+    def per_iteration(A, mode, solver):
+        A_sh, rmode = _shard_and_resolve(A, mesh, mode)
+        b_sh = shard_vector(jnp.ones(A.shape[0], jnp.float32), mesh)
+
+        def run(aa, bb):
+            return solver(_matvec_builder(aa, mesh, rmode), bb, None,
+                          tol=1e-6, maxiter=100)
+
+        stats = measure_collectives(run, A_sh, b_sh)
+        return {"resolved_mode": rmode,
+                "per_iteration_collectives":
+                    stats.summary(per_iteration=True)}
+
     nx = args.nx
-    # weak-scaling layout: per-device slab nx x nx x nx, global z = nx*N
-    A = generators.poisson3d_27pt(nx, nx, nx * n_meas, dtype=np.float32)
-    mesh = make_row_mesh(n_meas)
-    A_sh, rmode = _shard_and_resolve(A, mesh, "halo")
-    b_sh = shard_vector(jnp.ones(A.shape[0], jnp.float32), mesh)
-
-    stats = {}
+    A = generators.poisson3d_27pt(nx, nx, nx * n_dev, dtype=np.float32)
     for name, solver in (("cg", cg_full), ("cg_sr", cg_sr_full)):
-        def run(aa, bb, _s=solver):
-            return _s(_matvec_builder(aa, mesh, rmode), bb, None,
-                      tol=1e-6, maxiter=100)
-
-        stats[name] = measure_collectives(run, A_sh, b_sh)
-
-    N = args.target_devices
-    dims = tuple(args.mesh_dims)
-    rows_local = nx ** 3
-    nnz_local = int(A.nnz) // n_meas
-    local_bytes = spmv_local_hbm_bytes(nnz_local, rows_local)
-    hw = HardwareModel()
-
-    out = {
-        "measured_on": f"{n_meas}-device CPU mesh (virtual), "
-                       f"per-device shard = target shard",
-        "per_device_rows": rows_local,
-        "per_device_nnz": nnz_local,
-        "target_devices": N,
-        "target_mesh_dims": list(dims),
-        "total_nnz_at_target": nnz_local * N,
-        "local_hbm_bytes_per_iter": local_bytes,
-        "hw_model": {"hbm_gbs": hw.hbm_gbs, "ici_gbs": hw.ici_gbs,
-                     "hop_latency_us": hw.hop_latency_us},
-    }
-    for name, st in stats.items():
-        per_it = st.summary(per_iteration=True)
-        t_comm = comm_time_per_iteration(st, N, hw, dims)
-        eff = modeled_weak_scaling_efficiency(st, N, local_bytes, hw, dims)
-        eff_half = modeled_weak_scaling_efficiency(
-            st, N, local_bytes, hw, dims, overlap=0.5)
-        out[name] = {
-            "per_iteration_collectives": per_it,
-            "comm_us_per_iter_at_target": round(t_comm * 1e6, 2),
-            "compute_us_per_iter": round(
-                local_bytes / (hw.hbm_gbs * 1e9) * 1e6, 2),
-            "modeled_efficiency_no_overlap": round(eff, 3),
-            "modeled_efficiency_50pct_overlap": round(eff_half, 3),
-        }
-
-    # --- general-structure path (VERDICT r4 #3): the same PDE system
-    # packed as plain CSR, no stencil assumption — modeled at the SAME
-    # per-device shard as the DIA rows. The collective structure is
-    # measured on a feasible slab (the host-side CWELL pack of the full
-    # 190M-nnz system would dominate the bench run); the halo CUT scales
-    # with the slab's cross-section, so measured bytes scale by
-    # (nx/nx_meas)^2 to the target shard and local compute by
-    # (nx/nx_meas)^3. Compute uses the MEASURED CWELL kernel rate (the
-    # general kernel is VPU-bound at ~40 Gnnz/s, not HBM-bound like the
-    # stencil kernel) — which is exactly why general matrices weak-scale
-    # well: per-device compute is ~5x the DIA row's, against the same
-    # cut-volume comm.
-    try:
-        from tpu_sparse.dist.spmv import HaloCWELL
-        from tpu_sparse.sparse.convert import to_csr
-
-        nxg = min(nx, args.general_nx)
-        Ag = to_csr(generators.poisson3d_27pt(nxg, nxg, nxg * n_meas,
-                                              dtype=np.float32))
-        Ag_sh, gmode = _shard_and_resolve(Ag, mesh, "gspmd")
-        bg_sh = shard_vector(jnp.ones(Ag.shape[0], jnp.float32), mesh)
-
-        def run_g(aa, bb):
-            return cg_full(_matvec_builder(aa, mesh, gmode), bb, None,
-                           tol=1e-6, maxiter=100)
-
-        st_g = measure_collectives(run_g, Ag_sh, bg_sh)
-        per_it_g = st_g.summary(per_iteration=True)
-        # scale measured comm bytes to the target shard's cross-section
-        area_scale = (nx / nxg) ** 2
-        for op in st_g.per_iteration:
-            op.bytes = int(op.bytes * area_scale) if op.bytes > 64 \
-                else op.bytes  # scalar all-reduces don't scale
-        t_comm = comm_time_per_iteration(st_g, N, hw, dims)
-        # target-shard compute at the measured general-kernel rate
-        rows_t = nx ** 3
-        nnz_t = 27 * rows_t  # 27-pt interior density
-        t_comp = nnz_t / (args.cwell_gnnz * 1e9) \
-            + 4 * 4 * rows_t / (hw.hbm_gbs * 1e9)
-        eff = t_comp / (t_comp + t_comm)
-        eff_half = t_comp / (t_comp + 0.5 * t_comm)
-        entry = {
-            "resolved_mode": gmode,
-            "per_device_rows": rows_t,
-            "measured_on_rows": Ag.shape[0] // n_meas,
-            "per_iteration_collectives": per_it_g,
-            "comm_bytes_area_scaled_by": round(area_scale, 2),
-            "comm_us_per_iter_at_target": round(t_comm * 1e6, 2),
-            "compute_us_per_iter": round(t_comp * 1e6, 2),
-            "cwell_kernel_gnnz_per_s": args.cwell_gnnz,
-            "modeled_efficiency_no_overlap": round(eff, 3),
-            "modeled_efficiency_50pct_overlap": round(eff_half, 3),
-            "note": "general kernel is VPU-bound (~40 Gnnz/s), so "
-                    "per-device compute is ~5x the DIA row against the "
-                    "same cut-volume comm: scaling efficiency is high, "
-                    "absolute rate is kernel-bound",
-        }
-        if isinstance(Ag_sh, HaloCWELL):
-            entry["halo_recv_elems_per_device_measured"] = (
-                Ag_sh.wl + Ag_sh.wr)
-            entry["halo_recv_frac_of_n"] = round(
-                (Ag_sh.wl + Ag_sh.wr) / Ag.shape[0], 4)
-        out["cg_general"] = entry
-    except Exception as e:  # pragma: no cover
-        out["cg_general_error"] = str(e)[:160]
+        out[name] = per_iteration(A, "halo", solver)
+    nxg = min(nx, args.general_nx)
+    Ag = to_csr(generators.poisson3d_27pt(nxg, nxg, nxg * n_dev,
+                                          dtype=np.float32))
+    out["cg_general"] = dict(per_iteration(Ag, "gspmd", cg_full),
+                             per_device_rows=nxg ** 3)
     print(json.dumps(out))
     return out
 

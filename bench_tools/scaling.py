@@ -1,14 +1,15 @@
 """Weak-scaling measurement for the distributed halo-exchange SpMV/CG.
 
-North-star metric (BASELINE.json): nnz/s scaling efficiency from 1 chip to
-N devices on a 27-point 3-D Poisson system. On real multi-chip hardware
-this measures ICI halo exchange; on a virtual CPU mesh
-(XLA_FLAGS=--xla_force_host_platform_device_count=N) it validates the
-mechanics and communication volume, not absolute bandwidth.
+nnz/s scaling efficiency from 1 card to N devices on a 27-point 3-D
+Poisson system. On several GPUs this measures the halo exchange over
+NVLink; on a virtual CPU mesh
+(XLA_FLAGS=--xla_force_host_platform_device_count=N, with --cpu) it
+validates the mechanics and communication volume, not absolute bandwidth.
 
 Usage:
+  python bench_tools/scaling.py --mode halo --devices 1 2 4
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-      python bench_tools/scaling.py --mode halo --devices 1 2 4 8
+      python bench_tools/scaling.py --cpu --devices 1 2 4 8
 """
 
 from __future__ import annotations
@@ -31,14 +32,13 @@ def main(argv=None):
                     help="force the virtual CPU mesh")
     args = ap.parse_args(argv)
 
+    if args.cpu:
+        os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    if args.cpu or "xla_force_host_platform_device_count" in os.environ.get(
-            "XLA_FLAGS", ""):
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                     "/tmp/jax_cache"))
+    from tpu_sparse.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     import numpy as np
 

@@ -49,6 +49,9 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.5)
     args = ap.parse_args(argv)
 
+    from tpu_sparse.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     jax.config.update("jax_enable_x64", True)
     n = args.n
     x_grid = jnp.linspace(0, 1, n + 1)

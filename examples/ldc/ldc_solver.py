@@ -1,4 +1,4 @@
-"""FVM lid-driven cavity — the reference's end-to-end application, TPU-native.
+"""FVM lid-driven cavity — the reference's end-to-end application in JAX.
 
 Capability parity: FVM_example/LDC_by_torchsp/ldc_solver_common.py in the
 reference — staggered-grid fractional-step incompressible Navier-Stokes:
@@ -7,7 +7,7 @@ pressure-Poisson with Neumann walls assembled once (:90-135), pluggable
 pressure solve (:182-201), velocity correction (:203-206), mass-residual
 monitor (:208-215), CFL dt (:59-61).
 
-TPU-native re-design: the entire time step (boundary conditions, momentum,
+Re-design: the entire time step (boundary conditions, momentum,
 pressure CG/BiCGStab solve, correction) is ONE jitted function; the Poisson
 matrix is a 5-point DIA stencil solved by the in-repo Krylov solvers with a
 Jacobi or AMG preconditioner — no host round-trips inside the loop.
@@ -278,9 +278,8 @@ class LDCSolver:
             ) -> dict:
         """Advance nsteps. Steps are batched ``chunk`` per dispatch with
         lax.scan — one device program per chunk instead of one per step,
-        which removes the per-step host round trip (the dominant cost on
-        remote TPU runtimes; reference runs one Python step per loop,
-        ldc_solver_common.py:232-253)."""
+        which removes the per-step host round trip (the reference runs one
+        Python step per loop, ldc_solver_common.py:232-253)."""
         t0 = time.perf_counter()
         mres, iters_total = 0.0, 0
         done = 0
@@ -362,7 +361,7 @@ def run_solver_cli():
     (ldc_solver_common.py:300-338): --nx --Re --steps --method --quick."""
     import argparse
 
-    ap = argparse.ArgumentParser(description="TPU-native FVM lid-driven cavity")
+    ap = argparse.ArgumentParser(description="FVM lid-driven cavity")
     ap.add_argument("--nx", type=int, default=64)
     ap.add_argument("--Re", type=float, default=100.0)
     ap.add_argument("--steps", type=int, default=1000)
@@ -375,11 +374,10 @@ def run_solver_cli():
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--mixed", action="store_true",
                     help="mixed-precision pressure solves (f32 inner CG + "
-                         "f64 refinement) — the fast TPU path at fp64 "
-                         "accuracy")
+                         "f64 refinement) at fp64 accuracy")
     ap.add_argument("--f32", action="store_true",
-                    help="run single precision (TPU-native speed; pressure "
-                         "tolerance is relaxed to f32-reachable levels)")
+                    help="run single precision (pressure tolerance is "
+                         "relaxed to f32-reachable levels)")
     ap.add_argument("--save-dir", default=None,
                     help="write a velocity contour/streamline PNG here")
     ap.add_argument("--no-plot", action="store_true")
@@ -388,6 +386,9 @@ def run_solver_cli():
     ap.add_argument("--restore-state", default=None,
                     help="resume from a saved .npz state")
     args = ap.parse_args()
+    from tpu_sparse.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     if args.quick:
         args.nx, args.steps = 32, 100
 

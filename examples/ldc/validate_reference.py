@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Field-level cross-validation of the LDC solver against the reference
-repository's scipy ORIGIN script (VERDICT r4 #9).
+repository's scipy ORIGIN script.
 
-The origin (/root/reference/FVM_example/LDC_by_scipy/
+The origin (the reference's FVM_example/LDC_by_scipy/
 FVM_Staggered_uniform_scipy_tonysaad_origin.py) runs nx=100, Re=400
 (miu=0.0025), dt=0.01, 1000 steps, initial u=1 everywhere. This script
 runs the tpu_sparse LDC solver under the SAME configuration (explicit
@@ -10,7 +10,7 @@ dt, matching initial condition) and compares the final cell-centered
 velocity and pressure fields.
 
 Usage:
-  python examples/ldc/validate_reference.py --origin /tmp/ldc_origin_nx100.npz
+  python examples/ldc/validate_reference.py --origin ldc_origin_nx100.npz
 (The .npz is produced by running the origin script and saving u/v/p.)
 """
 
@@ -26,22 +26,21 @@ import numpy as np
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--origin", default="/tmp/ldc_origin_nx100.npz")
+    ap.add_argument("--origin", default="ldc_origin_nx100.npz")
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--solver", default="cg")
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (in-process override; "
-                         "the env var does not override a TPU plugin)")
+                    help="force the CPU backend")
     args = ap.parse_args()
 
+    if args.cpu:
+        os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+    from tpu_sparse.utils.compile_cache import setup_compile_cache
+
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                     "/tmp/jax_cache"))
+    setup_compile_cache()
     import jax.numpy as jnp
 
     from examples.ldc.ldc_solver import LDCConfig, LDCSolver

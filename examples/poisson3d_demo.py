@@ -1,11 +1,11 @@
-"""North-star demo: large 27-point 3-D Poisson solves on TPU.
+"""Demo: large 27-point 3-D Poisson solves on the GPU.
 
 Runs the BASELINE.json target workload — CG on a >100M-nnz 27-point 3-D
 Poisson system — on whatever device is available, reporting time-to-
 tolerance and effective nnz/s. `--distributed` row-shards the system over
 all local devices with halo-exchange SpMV.
 
-  python examples/poisson3d_demo.py --nx 160          # 110M nnz, 1 chip
+  python examples/poisson3d_demo.py --nx 160          # 110M nnz, 1 card
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/poisson3d_demo.py --nx 48 --distributed --cpu
 """
@@ -30,13 +30,13 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args(argv)
 
+    if args.cpu:
+        os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                     "/tmp/jax_cache"))
+    from tpu_sparse.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
@@ -70,34 +70,17 @@ def main(argv=None):
         dt = time.time() - t0
         label = f"distributed CG over {mesh.devices.size} devices"
     else:
-        # fused whole-iteration Pallas CG when the system fits its VMEM
-        # layout (r4: 103-105 ms vs ~120-130 for the while-loop path at
-        # this size); while-loop cg_full otherwise
-        from tpu_sparse.kernels.pallas_cg import (fused_cg_ext,
-                                                  make_fused_operator)
         from tpu_sparse.solvers import cg_full
 
-        opf = make_fused_operator(A)
-        if opf is not None:
-            g = jax.jit(lambda o, rhs: fused_cg_ext(
-                o, rhs, tol=args.tol, maxiter=args.maxiter))
-            force(g(opf, b))  # compile + warm
-            t0 = time.time()
-            out = g(opf, b)
-            force(out)
-            dt = time.time() - t0
-            x, info, iters, res = out
-            label = "single-device CG (fused Pallas iteration)"
-        else:
-            g = jax.jit(lambda a, rhs: cg_full(a, rhs, tol=args.tol,
-                                               maxiter=args.maxiter))
-            force(g(A, b))  # compile + warm
-            t0 = time.time()
-            out = g(A, b)
-            force(out)
-            dt = time.time() - t0
-            x, info, iters, res = out
-            label = "single-device CG"
+        g = jax.jit(lambda a, rhs: cg_full(a, rhs, tol=args.tol,
+                                           maxiter=args.maxiter))
+        force(g(A, b))  # compile + warm
+        t0 = time.time()
+        out = g(A, b)
+        force(out)
+        dt = time.time() - t0
+        x, info, iters, res = out
+        label = "single-device CG"
 
     rel = float(res) / float(jnp.linalg.norm(b))
     err = float(jnp.max(jnp.abs(x - x_true)))

@@ -97,7 +97,7 @@ def test_auto_routes_amg():
 
 
 def test_reference_backend_aliases(spd):
-    """module_a/b/c names route to their TPU-native analogues."""
+    """module_a/b/c names route to their analogues here."""
     A, b = spd
     s = SparseSolver()
     x, result = s.solve(A, b, method="cg", backend="module_a", tol=1e-10)
@@ -252,8 +252,8 @@ def test_solve_multi_rhs_warm_start_and_reporting():
 
 
 def test_to_tpu_operator_f64_wide_uses_df_compatible_segments():
-    """f64 wide matrices must segment at <=512K columns so the double-f32
-    kernel's hi+lo VMEM budget holds per segment."""
+    """f64 wide matrices segment at <=512K columns (half the f32 pack
+    limit of sparse/cwell.py), and the segmented SpMV matches scipy."""
     import scipy.sparse as sp
 
     from tpu_sparse.sparse.convert import csr_from_arrays
@@ -289,23 +289,6 @@ def test_m_ignored_warning_for_amg_and_direct(spd):
     with pytest.warns(UserWarning, match="M is ignored"):
         x, r = s.solve(A, b, method="direct", M="jacobi")
     assert r.converged
-
-
-def test_resident_toggle_roundtrip():
-    """set_resident_enabled flips auto-selection (CPU probe is trivial)."""
-    from tpu_sparse import kernels
-    from tpu_sparse.kernels import pallas_spmv as ps
-    from tpu_sparse.sparse.containers import DIA
-
-    n = 4096
-    A = DIA(jnp.ones((3, n), jnp.float32), (-1, 0, 1), (n, n))
-    try:
-        kernels.set_resident_enabled(False)
-        assert not ps.ExtendedStencilOperator(A).resident
-        kernels.set_resident_enabled(True)
-        assert ps.ExtendedStencilOperator(A).resident
-    finally:
-        kernels.set_resident_enabled(True)
 
 
 def test_batch_safe_matvec_spmm_route():
@@ -433,8 +416,7 @@ def test_benchmark_result_memory_field():
 
 
 def test_multi_rhs_cg_batch_default_and_block_option():
-    """Measured r3: vmapped batch CG beats block CG for independent RHS
-    (0.69-0.79x wall on chip); the router defaults to batch when no
+    """The router defaults to vmapped batch CG for independent RHS when no
     preconditioner is supplied, keeps block CG under M (shared Krylov
     space pays there), and accepts explicit multi_rhs= overrides."""
     from tpu_sparse.api.solver import SparseSolver

@@ -79,29 +79,18 @@ def test_bell_grad(rng):
     assert np.all(np.isfinite(np.asarray(g)))
 
 
-def test_bell_spmm_pallas_interpret(rng, monkeypatch):
-    """Both Pallas SpMM kernels (resident-B and column-tiled wide-B) in
-    interpret mode vs the dense oracle."""
-    import tpu_sparse.kernels.pallas_bell as pb
-
-    if not pb._HAS_PALLAS:
-        pytest.skip("pallas unavailable")
-    monkeypatch.setattr(pb, "_INTERPRET", True)
+@pytest.mark.parametrize("k", [130, 300])
+def test_bell_spmm_wide_rhs(rng, k):
+    """BELL SpMM through the dispatch for wide right-hand-side blocks
+    (k not a multiple of 128) vs the dense oracle."""
+    from tpu_sparse.kernels import spmm
 
     A = make_block_matrix(rng, nb=4, bs=8)
     n = A.shape[0]
     bell = bsr_to_bell(csr_to_bsr(dense_to_csr(A.astype(np.float32)), 8))
-    # resident path: k <= _K_TILE
-    B1 = rng.standard_normal((n, 130)).astype(np.float32)  # k%128 != 0
-    Y1 = pb._bell_spmm_impl(bell.blocks, bell.indices, jnp.asarray(B1),
-                            shape=bell.shape)
-    np.testing.assert_allclose(np.asarray(Y1), A @ B1, rtol=2e-4, atol=2e-4)
-    # tiled path: k > _K_TILE
-    monkeypatch.setattr(pb, "_K_TILE", 128)
-    B2 = rng.standard_normal((n, 300)).astype(np.float32)
-    Y2 = pb._bell_spmm_impl(bell.blocks, bell.indices, jnp.asarray(B2),
-                            shape=bell.shape)
-    np.testing.assert_allclose(np.asarray(Y2), A @ B2, rtol=2e-4, atol=2e-4)
+    B = rng.standard_normal((n, k)).astype(np.float32)
+    np.testing.assert_allclose(np.asarray(spmm(bell, jnp.asarray(B))),
+                               A @ B, rtol=2e-4, atol=2e-4)
 
 
 if __name__ == "__main__":  # standalone entry (reference test_module_a.py:358-377)

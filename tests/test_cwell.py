@@ -1,7 +1,7 @@
 """CWELL (column-window ELL) general-format tests: packing correctness vs
-the CSR oracle, XLA reference kernel, and the Pallas kernel in interpret
-mode. The general-structure SpMV capability row of SURVEY.md §2.2
-(reference: torch.sparse/cuSPARSE, solver.py:365)."""
+the CSR oracle, and the library SpMV/SpMM dispatch (kernels.spmv /
+kernels.spmm) against scipy. The general-structure SpMV capability row of
+SURVEY.md §2.2 (reference: torch.sparse/cuSPARSE, solver.py:365)."""
 
 
 import os as _os
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 
 from tpu_sparse.kernels import reference as ref
-from tpu_sparse.kernels import spmv
+from tpu_sparse.kernels import spmm, spmv
 from tpu_sparse.sparse import generators
 from tpu_sparse.sparse.convert import dense_to_csr, to_csr
 from tpu_sparse.sparse.cwell import CWELL, csr_to_cwell, rcm_permutation
@@ -26,6 +26,22 @@ def _random_csr(n, m, density, seed=0, dtype=np.float32):
     rng = np.random.default_rng(seed)
     A = (rng.random((n, m)) < density) * rng.standard_normal((n, m))
     return dense_to_csr(A.astype(dtype)), A.astype(dtype)
+
+
+def _scipy(A):
+    """Host scipy CSR (f64) of a library CSR: the independent oracle."""
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((np.asarray(A.data, dtype=np.float64),
+                          np.asarray(A.indices), np.asarray(A.indptr)),
+                         shape=A.shape)
+
+
+def _assert_close(y, y_ref, rel):
+    """max|y - y_ref| / max|y_ref| <= rel."""
+    y = np.asarray(y, dtype=np.float64)
+    err = np.abs(y - y_ref).max() / max(np.abs(y_ref).max(), 1e-300)
+    assert err <= rel, err
 
 
 @pytest.mark.parametrize("n,m,density", [
@@ -72,63 +88,29 @@ def test_cwell_stencil_fill():
                                rtol=1e-10, atol=1e-10)
 
 
-def test_cwell_pallas_interpret():
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_spmv_random():
     A, Ad = _random_csr(300, 300, 0.05, seed=8)
     W = csr_to_cwell(A)
-    x = jnp.asarray(
-        np.random.default_rng(9).standard_normal(300).astype(np.float32))
-    y_ref = ref.cwell_spmv(W, x)
-    pallas_cwell._INTERPRET = True
-    try:
-        y = pallas_cwell.cwell_spmv_pallas(W, x)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert y is not None
-    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                               rtol=1e-5, atol=1e-5)
+    x = np.random.default_rng(9).standard_normal(300).astype(np.float32)
+    _assert_close(spmv(W, jnp.asarray(x)), _scipy(A) @ x, 1e-5)
 
 
-def test_cwell_pallas_interpret_stencil():
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_spmv_stencil():
     A = to_csr(generators.poisson3d_27pt(8, dtype=np.float32))
     W = csr_to_cwell(A)
-    x = jnp.asarray(
-        np.random.default_rng(10).standard_normal(512).astype(np.float32))
-    y_ref = ref.csr_spmv(A, x)
-    pallas_cwell._INTERPRET = True
-    try:
-        y = pallas_cwell.cwell_spmv_pallas(W, x)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert y is not None
-    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                               rtol=1e-4, atol=1e-4)
+    x = np.random.default_rng(10).standard_normal(512).astype(np.float32)
+    _assert_close(spmv(W, jnp.asarray(x)), _scipy(A) @ x, 1e-5)
 
 
-def test_cwell_pallas_interpret_df64():
-    """f64 double-f32 compensated kernel (general structure)."""
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_spmv_f64():
+    """f64 general structure: native f64 arithmetic, round-off only."""
     A = to_csr(generators.poisson3d_27pt(8, dtype=np.float64))
     W = csr_to_cwell(A)
     assert W.vals.dtype == jnp.float64
-    x = jnp.asarray(np.random.default_rng(12).standard_normal(512))
-    y_ref = np.asarray(ref.csr_spmv(A, x))
-    pallas_cwell._INTERPRET = True
-    try:
-        y = pallas_cwell.cwell_spmv_pallas_df(W, x)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert y is not None
+    x = np.random.default_rng(12).standard_normal(512)
+    y = spmv(W, jnp.asarray(x))
     assert y.dtype == jnp.float64
-    rel = np.abs(np.asarray(y) - y_ref).max() / np.abs(y_ref).max()
-    # the Pallas interpreter may fork EFT rounding by an ulp (see
-    # pallas_spmv._two_prod note); the tight <1e-12 bound is asserted
-    # on-chip in test_tpu_validation.py
-    assert rel < 1e-6, rel
+    _assert_close(y, _scipy(A) @ x, 1e-13)
 
 
 def test_cwell_transpose():
@@ -176,90 +158,44 @@ def test_cwell_in_cg():
                                rtol=1e-3, atol=1e-3)
 
 
-def test_cwell_spmm_pallas_interpret():
-    """One-hot MXU SpMM kernel vs the XLA gather oracle."""
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_spmm_random():
     A, _ = _random_csr(300, 260, 0.08, seed=13)
     W = csr_to_cwell(A)
-    rng = np.random.default_rng(13)
-    B = jnp.asarray(rng.standard_normal((260, 5)).astype(np.float32))
-    y_ref = np.asarray(ref.cwell_spmm(W, B))
-    pallas_cwell._INTERPRET = True
-    try:
-        Y = pallas_cwell.cwell_spmm_pallas(W, B)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert Y is not None
+    B = np.random.default_rng(13).standard_normal((260, 5)).astype(np.float32)
+    Y = spmm(W, jnp.asarray(B))
     assert Y.shape == (300, 5)
-    np.testing.assert_allclose(np.asarray(Y), y_ref, rtol=1e-4, atol=1e-4)
+    _assert_close(Y, _scipy(A) @ B, 1e-5)
 
 
-def test_cwell_spmm_pallas_interpret_stencil_wide_rhs():
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_spmm_stencil_wide_rhs():
     A = to_csr(generators.poisson3d_27pt(8, dtype=np.float32))
     W = csr_to_cwell(A)
-    rng = np.random.default_rng(14)
-    B = jnp.asarray(rng.standard_normal((512, 17)).astype(np.float32))
-    y_ref = np.asarray(ref.cwell_spmm(W, B))
-    pallas_cwell._INTERPRET = True
-    try:
-        Y = pallas_cwell.cwell_spmm_pallas(W, B)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert Y is not None
-    np.testing.assert_allclose(np.asarray(Y), y_ref, rtol=1e-4, atol=1e-4)
+    B = np.random.default_rng(14).standard_normal((512, 17)).astype(np.float32)
+    _assert_close(spmm(W, jnp.asarray(B)), _scipy(A) @ B, 1e-5)
 
 
-def test_cwell_spmm_gather_vs_onehot_interpret():
-    """The gather-contraction SpMM (r4 primary path) agrees with both
-    the one-hot MXU kernel and the XLA oracle across group quanta."""
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_spmm_across_group_quanta():
+    """SpMM agrees with scipy for every group quantum of the pack."""
     A = to_csr(generators.poisson2d(20, dtype=np.float32))
-    rng = np.random.default_rng(15)
-    B = jnp.asarray(rng.standard_normal((400, 20)).astype(np.float32))
-    pallas_cwell._INTERPRET = True
-    try:
-        for Q in (1, 2, 4):
-            W = csr_to_cwell(A, group=Q)
-            y_ref = np.asarray(ref.cwell_spmm(W, B))
-            Yg = pallas_cwell.cwell_spmm_pallas_gather(W, B)
-            assert Yg is not None
-            np.testing.assert_allclose(np.asarray(Yg), y_ref,
-                                       rtol=1e-4, atol=1e-4)
-    finally:
-        pallas_cwell._INTERPRET = False
+    B = np.random.default_rng(15).standard_normal((400, 20)).astype(np.float32)
+    for Q in (1, 2, 4):
+        W = csr_to_cwell(A, group=Q)
+        _assert_close(spmm(W, jnp.asarray(B)), _scipy(A) @ B, 1e-5)
 
 
-def test_cwell_pallas_interpret_bf16():
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_spmv_bf16_values():
     A = to_csr(generators.poisson3d_27pt(8, dtype=np.float32))
-    W = csr_to_cwell(A)
-    Wb = W.with_data(W.vals.astype(jnp.bfloat16)) if hasattr(W, 'with_data') \
-        else CWELL(W.vals.astype(jnp.bfloat16), W.idx2, W.srow, W.shape,
-                   nnz=W.nnz, fill=W.fill)
-    x = jnp.asarray(np.random.default_rng(15).standard_normal(512)
-                    .astype(np.float32))
-    # oracle: f32 accumulation over the SAME bf16-rounded values (the
-    # XLA reference accumulates in bf16, which is much less accurate
-    # than the kernel's f32 accumulators)
-    W32 = Wb.with_data(Wb.vals.astype(jnp.float32))
-    y_ref = np.asarray(ref.cwell_spmv(W32, x))
-    pallas_cwell._INTERPRET = True
-    try:
-        y = pallas_cwell.cwell_spmv_pallas(Wb, x)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert y is not None
-    assert y.dtype == jnp.float32  # result_type(bf16, f32)
-    np.testing.assert_allclose(np.asarray(y), y_ref, rtol=1e-5, atol=1e-5)
+    Wb = csr_to_cwell(A)
+    Wb = Wb.with_data(Wb.vals.astype(jnp.bfloat16))
+    x = np.random.default_rng(15).standard_normal(512).astype(np.float32)
+    y = spmv(Wb, jnp.asarray(x))
+    # the product is taken in bf16 (the values' dtype): its error bound
+    # is bf16 round-off of 27-term sums
+    _assert_close(y, _scipy(A) @ x, 3e-2)
 
 
 def test_cwellseg_spmv_matches_oracle():
-    """Column-segmented CWELL for m beyond the VMEM x cap."""
+    """Column-segmented CWELL for wide m."""
     from tpu_sparse.sparse.cwell import CWELLSeg, csr_to_cwell_segments
 
     A, Ad = _random_csr(600, 1500, 0.02, seed=16)
@@ -340,9 +276,7 @@ def test_to_tpu_operator_promotes_wide_to_segments():
 
 
 # ---------------------------------------------------------------------------
-# grouped-plane pack + kernel variant: each aligned run of Q planes
-# shares one window row, so the Pallas kernel does 2*(8/Q) dynamic x-row
-# reads per 8-plane group instead of 16 (ROADMAP perf item 2).
+# grouped-plane pack: each aligned run of Q planes shares one window row.
 # ---------------------------------------------------------------------------
 
 
@@ -361,8 +295,8 @@ def test_cwell_grouped_pack_roundtrip(n, m, density, Q):
 
 @pytest.mark.parametrize("Q", [2, 4, 8])
 def test_cwell_grouped_srow_uniform_within_runs(Q):
-    """The property the gq kernel relies on: srow is constant within
-    every aligned run of Q planes."""
+    """The grouped pack's invariant: srow is constant within every
+    aligned run of Q planes."""
     A = to_csr(generators.poisson3d_27pt(8, dtype=np.float32))
     W = csr_to_cwell(A, group=Q)
     srow = np.asarray(W.srow)
@@ -379,65 +313,34 @@ def test_cwell_grouped_srow_uniform_within_runs(Q):
 
 
 @pytest.mark.parametrize("Q", [2, 4, 8])
-def test_cwell_grouped_pallas_interpret(Q):
-    from tpu_sparse.kernels import pallas_cwell
-
-    A, Ad = _random_csr(300, 300, 0.05, seed=8)
+def test_cwell_grouped_spmv_random(Q):
+    A, _ = _random_csr(300, 300, 0.05, seed=8)
     W = csr_to_cwell(A, group=Q)
-    x = jnp.asarray(
-        np.random.default_rng(9).standard_normal(300).astype(np.float32))
-    y_ref = ref.cwell_spmv(W, x)
-    pallas_cwell._INTERPRET = True
-    try:
-        y = pallas_cwell.cwell_spmv_pallas(W, x)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert y is not None
-    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                               rtol=1e-5, atol=1e-5)
+    x = np.random.default_rng(9).standard_normal(300).astype(np.float32)
+    _assert_close(spmv(W, jnp.asarray(x)), _scipy(A) @ x, 1e-5)
 
 
 @pytest.mark.parametrize("Q", [2, 8])
-def test_cwell_grouped_pallas_interpret_stencil(Q):
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_grouped_spmv_stencil(Q):
     A = to_csr(generators.poisson3d_27pt(8, dtype=np.float32))
     W = csr_to_cwell(A, group=Q)
-    x = jnp.asarray(
-        np.random.default_rng(10).standard_normal(512).astype(np.float32))
-    y_ref = ref.csr_spmv(A, x)
-    pallas_cwell._INTERPRET = True
-    try:
-        y = pallas_cwell.cwell_spmv_pallas(W, x)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert y is not None
-    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                               rtol=1e-4, atol=1e-4)
+    x = np.random.default_rng(10).standard_normal(512).astype(np.float32)
+    _assert_close(spmv(W, jnp.asarray(x)), _scipy(A) @ x, 1e-5)
 
 
 @pytest.mark.parametrize("Q", [2, 4, 8])
-def test_cwell_grouped_pallas_interpret_df64(Q):
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_grouped_spmv_f64(Q):
     A = to_csr(generators.poisson3d_27pt(8, dtype=np.float64))
     W = csr_to_cwell(A, group=Q)
-    x = jnp.asarray(np.random.default_rng(12).standard_normal(512))
-    y_ref = np.asarray(ref.csr_spmv(A, x))
-    pallas_cwell._INTERPRET = True
-    try:
-        y = pallas_cwell.cwell_spmv_pallas_df(W, x)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert y is not None
+    x = np.random.default_rng(12).standard_normal(512)
+    y = spmv(W, jnp.asarray(x))
     assert y.dtype == jnp.float64
-    rel = np.abs(np.asarray(y) - y_ref).max() / np.abs(y_ref).max()
-    assert rel < 1e-6, rel
+    _assert_close(y, _scipy(A) @ x, 1e-13)
 
 
 def test_cwell_grouped_fill_inflation():
-    """Plane inflation per quantum on the 27-pt system: Q=2 must stay
-    within its profitability window (~1.2x)."""
+    """Plane inflation per quantum on the 27-pt system: Q=2 stays within
+    ~1.2x of the ungrouped pack."""
     A = to_csr(generators.poisson3d_27pt(12, dtype=np.float32))
     W = csr_to_cwell(A)
     S1 = W.planes
@@ -470,69 +373,31 @@ def test_cwell_grouped_pack_fuzz():
 
 
 @pytest.mark.parametrize("Q", [2, 4, 8])
-def test_cwell_grouped_spmm_pallas_interpret(Q):
-    """Grouped SpMM: the Q one-hot matrices of a run merge into one MXU
-    matmul (matmul is linear; columns within a run are distinct)."""
-    from tpu_sparse.kernels import pallas_cwell
-
+def test_cwell_grouped_spmm_random(Q):
     A, _ = _random_csr(300, 260, 0.08, seed=13)
     W = csr_to_cwell(A, group=Q)
-    rng = np.random.default_rng(13)
-    B = jnp.asarray(rng.standard_normal((260, 5)).astype(np.float32))
-    y_ref = np.asarray(ref.cwell_spmm(W, B))
-    pallas_cwell._INTERPRET = True
-    try:
-        Y = pallas_cwell.cwell_spmm_pallas(W, B)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert Y is not None
-    np.testing.assert_allclose(np.asarray(Y), y_ref, rtol=1e-4, atol=1e-4)
+    B = np.random.default_rng(13).standard_normal((260, 5)).astype(np.float32)
+    _assert_close(spmm(W, jnp.asarray(B)), _scipy(A) @ B, 1e-5)
 
 
 def test_cwell_grouped_spmm_stencil_wide_rhs():
-    from tpu_sparse.kernels import pallas_cwell
-
     A = to_csr(generators.poisson3d_27pt(8, dtype=np.float32))
     W = csr_to_cwell(A, group=4)
-    rng = np.random.default_rng(14)
-    B = jnp.asarray(rng.standard_normal((512, 17)).astype(np.float32))
-    y_ref = np.asarray(ref.cwell_spmm(W, B))
-    pallas_cwell._INTERPRET = True
-    try:
-        Y = pallas_cwell.cwell_spmm_pallas(W, B)
-    finally:
-        pallas_cwell._INTERPRET = False
-    assert Y is not None
-    np.testing.assert_allclose(np.asarray(Y), y_ref, rtol=1e-4, atol=1e-4)
+    B = np.random.default_rng(14).standard_normal((512, 17)).astype(np.float32)
+    _assert_close(spmm(W, jnp.asarray(B)), _scipy(A) @ B, 1e-5)
 
 
-def test_cwell_spmm_wide_k_column_chunking():
-    """k past the VMEM kt budget solves kt-wide column slabs (r3 on-chip
-    finding: k=128 at m=262144 failed Mosaic lowering — the k-block must
-    be 128-divisible or equal to the array dim)."""
-    import tpu_sparse.kernels.pallas_cwell as pc
-    from tpu_sparse.kernels import reference as kref
-    from tpu_sparse.sparse.convert import dense_to_csr
-
+@pytest.mark.parametrize("k", [150, 256])
+def test_cwell_spmm_wide_k(k):
+    """Wide right-hand-side blocks (k in the hundreds) through spmm."""
     rng = np.random.default_rng(5)
     n = 512
     Ad = ((rng.random((n, n)) < 0.05)
           * rng.standard_normal((n, n))).astype(np.float32)
-    W = csr_to_cwell(dense_to_csr(Ad), group=2)
-    old_interp, old_budget = pc._INTERPRET, pc._B_VMEM_ELEMS
-    pc._INTERPRET = True
-    pc._B_VMEM_ELEMS = 1024 * 64  # tiny budget forces kt < k
-    try:
-        for k in (150, 256):
-            B = jnp.asarray(rng.standard_normal((n, k)).astype(np.float32))
-            Y = pc.cwell_spmm_pallas(W, B)
-            assert Y is not None
-            Yo = kref.cwell_spmm(W, B)
-            rel = float(jnp.max(jnp.abs(Y - Yo))
-                        / (float(jnp.max(jnp.abs(Yo))) + 1e-30))
-            assert rel < 1e-5, (k, rel)
-    finally:
-        pc._INTERPRET, pc._B_VMEM_ELEMS = old_interp, old_budget
+    A = dense_to_csr(Ad)
+    W = csr_to_cwell(A, group=2)
+    B = rng.standard_normal((n, k)).astype(np.float32)
+    _assert_close(spmm(W, jnp.asarray(B)), _scipy(A) @ B, 1e-5)
 
 
 if __name__ == "__main__":  # standalone entry (reference test_module_a.py:358-377)
@@ -541,26 +406,10 @@ if __name__ == "__main__":  # standalone entry (reference test_module_a.py:358-3
     run_standalone(__file__)
 
 
-def test_cwell_pallas_interpret_unroll_cap():
-    """Partial-unroll (compile-lite) kernel path matches the reference:
-    rolled outer super-group loop + unrolled inner block, including the
-    remainder epilogue (r5: supernodal level packs set unroll_cap)."""
-    from tpu_sparse.kernels import pallas_cwell
-
-    A, Ad = _random_csr(640, 640, 0.08, seed=11)
-    x = jnp.asarray(
-        np.random.default_rng(12).standard_normal(640).astype(np.float32))
-    for cap in (1, 2, 3):
-        W = csr_to_cwell(A)
-        if W.planes // 8 <= cap:  # need G > cap to exercise the path
-            continue
-        W.unroll_cap = cap
-        y_ref = ref.cwell_spmv(W, x)
-        pallas_cwell._INTERPRET = True
-        try:
-            y = pallas_cwell.cwell_spmv_pallas(W, x)
-        finally:
-            pallas_cwell._INTERPRET = False
-        assert y is not None
-        np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref),
-                                   rtol=1e-5, atol=1e-5)
+def test_cwell_spmv_plane_rich():
+    """A dense-ish pack (many planes per row block) through spmv."""
+    A, _ = _random_csr(640, 640, 0.08, seed=11)
+    W = csr_to_cwell(A)
+    assert W.planes >= 32
+    x = np.random.default_rng(12).standard_normal(640).astype(np.float32)
+    _assert_close(spmv(W, jnp.asarray(x)), _scipy(A) @ x, 1e-5)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from tpu_sparse.direct import (
+    CR_MIN_N,
     banded_lu_solve,
     banded_solve,
     direct_solve,
@@ -22,6 +23,7 @@ from tpu_sparse.direct import (
     thomas_solve,
 )
 from tpu_sparse.sparse import generators
+from tpu_sparse.sparse.containers import DIA
 
 
 def test_thomas_tridiagonal():
@@ -217,15 +219,50 @@ def test_block_pcr_wide_band_f32():
                                rtol=2e-4, atol=2e-4)
 
 
-def test_gj_solve_batched_matches_linalg():
-    from tpu_sparse.direct.banded import _gj_solve_batched
+@pytest.mark.parametrize("n,kind", [
+    (CR_MIN_N - 1, "thomas"), (CR_MIN_N, "pcr"),
+])
+def test_banded_solve_tridiagonal_threshold(n, kind, monkeypatch):
+    """Tridiagonal systems switch from the Thomas scan to parallel cyclic
+    reduction (plus one refinement step) at CR_MIN_N rows; both sides
+    solve correctly."""
+    import tpu_sparse.direct as d
 
-    rng = np.random.default_rng(10)
-    D = rng.standard_normal((6, 17, 17)) + 17 * np.eye(17)  # s>16: fori path
-    B = rng.standard_normal((6, 17, 3))
-    X = _gj_solve_batched(jnp.asarray(D), jnp.asarray(B))
-    np.testing.assert_allclose(np.asarray(X), np.linalg.solve(D, B),
-                               rtol=1e-10, atol=1e-12)
+    called = []
+    for name in ("thomas_solve", "pcr_solve"):
+        fn = getattr(d, name)
+        monkeypatch.setattr(d, name, lambda A, b, _f=fn, _n=name: (
+            called.append(_n), _f(A, b))[1])
+    A = generators.tridiagonal(n)
+    xt = np.random.default_rng(n).standard_normal(n)
+    x = d.banded_solve(A, A @ jnp.asarray(xt))
+    assert set(called) == {f"{kind}_solve"}
+    np.testing.assert_allclose(np.asarray(x), xt, rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("n,kind", [
+    (CR_MIN_N - 1, "banded_lu"), (CR_MIN_N, "block_pcr"),
+])
+def test_banded_solve_wide_band_threshold(n, kind, monkeypatch):
+    """Wider bands switch from the banded-LU scan to block cyclic
+    reduction at CR_MIN_N rows; both sides solve correctly."""
+    import tpu_sparse.direct as d
+
+    called = []
+    for name in ("banded_lu_solve", "block_pcr_solve"):
+        fn = getattr(d, name)
+        monkeypatch.setattr(d, name, lambda A, b, _f=fn, _n=name: (
+            called.append(_n), _f(A, b))[1])
+    rng = np.random.default_rng(n)
+    offs = (-3, -1, 0, 2, 3)
+    data = rng.standard_normal((len(offs), n))
+    data[offs.index(0)] = 12.0  # diagonally dominant
+    A = DIA(jnp.asarray(data), offs, (n, n))
+    xt = rng.standard_normal(n)
+    Ad = np.asarray(A.todense())
+    x = d.banded_solve(A, jnp.asarray(Ad @ xt))
+    assert set(called) == {f"{kind}_solve"}
+    np.testing.assert_allclose(np.asarray(x), xt, rtol=1e-9, atol=1e-9)
 
 
 class TestSparseLU:
@@ -287,24 +324,22 @@ class TestSparseLU:
         np.testing.assert_allclose(np.asarray(g), gref, rtol=1e-9,
                                    atol=1e-9)
 
-    def test_router_uses_cached_factors_for_general_tpu_path(self):
-        """The router path itself (works on any backend; on TPU it is the
-        replacement for the eager-only SuperLU round trip)."""
-        from tpu_sparse.api.solver import SparseSolver, _jitted_sparse_lu
+    def test_router_general_direct_uses_host_superlu(self):
+        """Past the densify limit the router's general direct solve runs
+        host SuperLU inside the compiled program (pure_callback)."""
+        from tpu_sparse.api.solver import SparseSolver
+        from tpu_sparse.direct import _DENSE_DIRECT_LIMIT, needs_host_splu
 
-        Asp, Ac = self._general_matrix(n_grid=16)
+        Asp, Ac = self._general_matrix(n_grid=72)
         n = Ac.shape[0]
+        assert n > _DENSE_DIRECT_LIMIT and needs_host_splu(Ac)
         xt = np.random.default_rng(3).standard_normal(n)
         b = jnp.asarray(Asp @ xt)
-        s = SparseSolver()
-        lu1 = s._sparse_lu(Ac)
-        lu2 = s._sparse_lu(Ac)
-        assert lu1 is lu2  # factorization cached per matrix
-        x, info, res, rel = _jitted_sparse_lu()(lu1, Ac, b)
-        assert int(info) == 0
+        x, r = SparseSolver().solve(Ac, b, method="direct")
+        assert r.converged
         np.testing.assert_allclose(np.asarray(x), xt, rtol=1e-9,
                                    atol=1e-9)
-        assert float(rel) < 1e-10
+        assert r.residual < 1e-10
 
 
 if __name__ == "__main__":  # standalone entry (reference test_module_a.py:358-377)

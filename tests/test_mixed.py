@@ -184,7 +184,7 @@ def test_gmres_refined_adaptive_restart_off():
 
 
 def test_router_precision_auto_routes_f64_to_mixed(monkeypatch):
-    """precision defaults to 'auto' (VERDICT r3 weak #3): real-f64 Krylov
+    """precision defaults to 'auto': real-f64 Krylov
     solves with a reachable tol run the defect-correction mixed path, and
     the result still honors the f64 residual contract."""
     from tpu_sparse.api.solver import SparseSolver

@@ -1,10 +1,10 @@
 """Multi-host (multi-controller) validation on a 2-process CPU cluster.
 
 The reference is strictly single-device (SURVEY.md §2.3); the north-star
-spec requires scaling to >=2 hosts. Real multi-chip hardware is not
-available here, so this spawns TWO separate processes, each with 4
-virtual CPU devices, joined through ``jax.distributed`` (the same gRPC
-coordination service a TPU pod uses over DCN), and runs
+spec requires scaling to >=2 hosts. Several hosts are not available
+here, so this spawns TWO separate processes, each with 4 virtual CPU
+devices, joined through ``jax.distributed`` (the same gRPC coordination
+service a multi-host GPU cluster uses), and runs
 ``distributed_cg`` on the global 8-device mesh — exercising
 ``initialize_multihost`` (dist/mesh.py), cross-process device_put
 sharding (dist/partition.py), and the gspmd + halo SpMV paths end to
@@ -81,7 +81,7 @@ def test_two_process_distributed_cg():
             assert stats["info"] == 0, (mode, stats)
             assert stats["rel_residual"] < 1e-5, (mode, stats)
     # the general-CSR system must get the cut-volume halo SpMV across
-    # processes (plan built from the pre-shard host copy, r5)
+    # processes (plan built from the pre-shard host copy)
     for r in reports:
         assert r["results"]["general_csr"]["resolved_mode"] == "cwell_halo"
     # AMG must actually precondition (fewer iterations than plain CG)

@@ -127,7 +127,7 @@ def test_amg_precond_differentiable():
 
 def test_chebyshev_smoother_amg():
     """Chebyshev-smoothed AMG must converge at least as fast as L1-Jacobi
-    on Poisson (reduction-free smoother for TPU)."""
+    on Poisson (reduction-free smoother)."""
     from tpu_sparse.precond import amg_preconditioner
     from tpu_sparse.solvers import cg_full
 

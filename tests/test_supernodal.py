@@ -77,12 +77,18 @@ def test_jit_and_multirhs():
 
 def test_level_schedule_structure():
     """Levels are ~tree height, not ~block count (the point of ND +
-    aligned packing), and every level pack is Pallas-capable."""
+    aligned packing), and every level pack fits the CWELL pack limits
+    (no CSR fallback level)."""
+    from tpu_sparse.sparse.containers import CSR
+
     Ac = to_csr(generators.poisson2d(96, dtype=np.float32))
     lu = SupernodalLU.factor(Ac)
     B = lu.n_pad // lu.block
     assert lu.n_levels < B / 2, (lu.n_levels, B)
-    assert lu.device_capable
+    packs = [N for level in (*lu.packsL, *lu.packsU, *lu.packsLT,
+                             *lu.packsUT) if level is not None
+             for N in level if N is not None]
+    assert packs and not any(isinstance(N, CSR) for N in packs)
 
 
 def test_gradient_contract():

@@ -1,15 +1,16 @@
-"""tpu_sparse — a TPU-native sparse linear-algebra framework.
+"""tpu_sparse — a sparse linear-algebra framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 reference `Pytorch-Sparse-Linalg-torch-amgx.cg.bicg.gmres` library:
 
 * Krylov solvers (CG, BiCGStab, GMRES with restart) over pytree operands with
   matrix-free callables and implicit-differentiation autograd.
-* First-class sparse containers (COO/CSR/DIA/BSR) with Pallas TPU kernels.
+* First-class sparse containers (COO/CSR/DIA/BSR/CWELL/BELL) with jit-safe
+  XLA SpMV/SpMM kernels.
 * Algebraic-multigrid preconditioned solves (replaces the AMGX backend).
 * Banded/dense direct solvers with adjoint autograd (replaces cuDSS).
 * A unified `SparseSolver` / `solve()` router with capability detection.
-* Distributed (multi-chip / multi-host) row-partitioned solvers via
+* Distributed (multi-device / multi-host) row-partitioned solvers via
   `jax.sharding.Mesh` + `shard_map`, halo-exchange SpMV and psum reductions.
 """
 

@@ -15,7 +15,7 @@ torch_sparse_linalg.py:1227-1248); its Modules B/C also compute Ā on the
 pattern (torch_amgx.py:432-465 CSR/COO/dense cases, cudss_solver.py:115-173).
 This module computes **both**, for every solver and every sparse format.
 
-TPU-native design:
+Design:
 
 * Matrix operands (sparse containers / dense arrays) go through
   `jax.custom_vjp` with the whole container as a differentiable pytree
@@ -125,10 +125,7 @@ def _ims_bwd(method, opts, residuals, cotangents):
     v = solver(At, x_bar, None, M=M_adj, **kw)[0]
     grad_b = v
     # Ā on the pattern: vjp of the values-linear matvec A ↦ A x at -v.
-    # Must use the XLA reference SpMV: Pallas kernels are not AD-traceable.
-    from tpu_sparse.kernels import spmv_reference
-
-    _, mv_vjp = jax.vjp(lambda a: spmv_reference(a, x), A)
+    _, mv_vjp = jax.vjp(lambda a: spmv(a, x), A)
     (grad_A,) = mv_vjp(tree_map(lambda u: -u, v))
     return (grad_A, grad_b, _zero_cotangent(x0), _zero_cotangent(M))
 
@@ -136,158 +133,12 @@ def _ims_bwd(method, opts, residuals, cotangents):
 _implicit_matrix_solve.defvjp(_ims_fwd, _ims_bwd)
 
 
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def ext_krylov_diff(method: str, opts: tuple, A, b, x0, M):
-    """Krylov solve of a DIA system in halo-extended space (pad-free Pallas
-    SpMV fast path) WITH implicit-diff adjoint: forward and adjoint solves
-    both run the extended Pallas kernel; Ā on the diagonal pattern comes
-    from the XLA reference SpMV vjp (Pallas carries no AD rules).
-
-    A must be square DIA, f32/bf16, bandwidth < n; M must be None or a
-    diagonal Partial(_apply_diag, d). Returns (x, info, iters, res).
-    Same adjoint contract as `_implicit_matrix_solve` (one extra solve;
-    reference torch_sparse_linalg.py:1227-1248)."""
-    out = _ext_run(method, dict(opts), A, b, x0, M)
-    return out
-
-
-def _ext_run(method, kw, A, b, x0, M):
-    from tpu_sparse.kernels.pallas_spmv import ExtendedStencilOperator
-    from tpu_sparse.precond.jacobi import _apply_diag
-
-    # Fused whole-iteration Pallas CG (r4): for f32 CG with default x0
-    # and M None or a diagonal (Jacobi) preconditioner, every dot/axpy
-    # runs inside the SpMV data stream (x/r/p VMEM-resident; dinv rides
-    # as a fifth resident vector) — measured 106-107 Gnnz/s effective vs
-    # 84-86 for the while-loop path at 110M nnz. Same contract (true
-    # final residual, info codes); custom_vjp above shields the kernel
-    # from AD, and the adjoint solve reuses this same fast path.
-    if method == "cg" and x0 is None:
-        from tpu_sparse.kernels.pallas_cg import (fused_cg_ext,
-                                                  make_fused_operator)
-        from tpu_sparse.precond.jacobi import _apply_diag as _ad
-
-        dvec = False
-        if M is None:
-            dvec = None
-        elif isinstance(M, Partial) and M.func is _ad:
-            dvec = M.args[0]
-        if dvec is not False:
-            opf = make_fused_operator(A, precond=dvec is not None)
-            if opf is not None:
-                fkw = {k: v for k, v in kw.items()
-                       if k in ("tol", "atol", "maxiter")
-                       and v is not None}
-                return fused_cg_ext(opf, b, dinv=dvec, **fkw)
-
-    # Fused whole-iteration BiCGStab (r4): same scheme, two stream
-    # passes per iteration (the method's two matvecs), breakdown codes
-    # preserved through the history encoding. 110M-nnz measured:
-    # 108 ms vs 127 for the while-loop ext path.
-    if method == "bicgstab" and x0 is None and M is None:
-        from tpu_sparse.kernels.pallas_bicgstab import (
-            fused_bicgstab_ext, make_fused_bicgstab_operator)
-
-        opf = make_fused_bicgstab_operator(A)
-        if opf is not None:
-            fkw = {k: v for k, v in kw.items()
-                   if k in ("tol", "atol", "maxiter") and v is not None}
-            return fused_bicgstab_ext(opf, b, **fkw)
-
-    solver = _SOLVERS[method]
-    op = ExtendedStencilOperator(A)
-    b_ext = op.extend(b)
-    x0_ext = None if x0 is None else op.extend(x0)
-    M_ext = None
-    if M is not None:  # diagonal preconditioner (unit-extended margins)
-        M_ext = Partial(_apply_diag, op.extend_diag(M.args[0]))
-    out = solver(op, b_ext, x0_ext, M=M_ext, **kw)
-    return (op.extract(out[0]),) + tuple(out[1:])
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def ext_krylov_diff_f64(method: str, opts: tuple, A, b, x0, M):
-    """Full-precision f64 Krylov solve on a DIA system through the
-    double-f32 compensated Pallas SpMV (ExtendedStencilOperatorDF),
-    with the same implicit-diff adjoint contract as `ext_krylov_diff`.
-
-    The DF operator is built ONCE per compiled program (hi/lo split of
-    the diagonals happens outside the while loop); Krylov vectors stay
-    f64 and each matvec runs split → Pallas DF kernel → recombine
-    (~2^-45 relative operator accuracy, measured 4.6e-15 on chip), so
-    the router's DEFAULT f64 path matches the reference's fp64 default
-    (torch_sparse_linalg.py:57-58) at 2.5-3× the XLA-emulated SpMV
-    rate. Callers gate on tol ≥ ~1e-11; the true-residual final check
-    inside each solver reports honest info codes either way."""
-    return _ext_run_f64(method, dict(opts), A, b, x0, M)
-
-
-def _ext_run_f64(method, kw, A, b, x0, M):
-    from tpu_sparse.kernels.pallas_spmv import make_extended_operator_f64
-
-    op = make_extended_operator_f64(A)
-    if op is None:  # Pallas unavailable / unsupported operand shape
-        raise ValueError(
-            "ext_krylov_diff_f64: double-f32 Pallas operator unavailable "
-            "for this matrix (Pallas disabled or unsupported layout); "
-            "use the XLA f64 path (precision='full' without the ext fast "
-            "path) instead.")
-    solver = _SOLVERS[method]
-    return solver(op.matvec64, b, x0, M=M, **kw)
-
-
-def _eks64_fwd(method, opts, A, b, x0, M):
-    out = ext_krylov_diff_f64(method, opts, A, b, x0, M)
-    return out, (A, b, x0, M, out[0])
-
-
-def _eks64_bwd(method, opts, residuals, cotangents):
-    A, b, x0, M, x = residuals
-    x_bar = cotangents[0]
-    kw = dict(opts)
-    At = _adjoint_matrix(A, _SYMMETRIC[method])
-    M_adj = M if _SYMMETRIC[method] else None
-    v = _ext_run_f64(method, kw, At, x_bar, None, M_adj)[0]
-    grad_b = v
-    from tpu_sparse.kernels import spmv_reference
-
-    _, mv_vjp = jax.vjp(lambda a: spmv_reference(a, x), A)
-    (grad_A,) = mv_vjp(tree_map(lambda u: -u, v))
-    return (grad_A, grad_b, _zero_cotangent(x0), _zero_cotangent(M))
-
-
-ext_krylov_diff_f64.defvjp(_eks64_fwd, _eks64_bwd)
-
-
-def _eks_fwd(method, opts, A, b, x0, M):
-    out = ext_krylov_diff(method, opts, A, b, x0, M)
-    return out, (A, b, x0, M, out[0])
-
-
-def _eks_bwd(method, opts, residuals, cotangents):
-    A, b, x0, M, x = residuals
-    x_bar = cotangents[0]
-    kw = dict(opts)
-    At = _adjoint_matrix(A, _SYMMETRIC[method])
-    M_adj = M if _SYMMETRIC[method] else None
-    v = _ext_run(method, kw, At, x_bar, None, M_adj)[0]
-    grad_b = v
-    from tpu_sparse.kernels import spmv_reference
-
-    _, mv_vjp = jax.vjp(lambda a: spmv_reference(a, x), A)
-    (grad_A,) = mv_vjp(tree_map(lambda u: -u, v))
-    return (grad_A, grad_b, _zero_cotangent(x0), _zero_cotangent(M))
-
-
-ext_krylov_diff.defvjp(_eks_fwd, _eks_bwd)
-
-
 def _final_stats(A_fn, b, x, kw):
     """(info, iters=-1, res) for the matrix-free paths: recompute the true
     residual and apply the cg_full-style final check. stop_gradient keeps
-    the extra A_fn application (possibly a Pallas kernel with no JVP rule)
-    off the autodiff path — stats are reports, not differentiable
-    outputs."""
+    the extra A_fn application (possibly an op with no JVP rule, such as
+    a host callback) off the autodiff path — stats are reports, not
+    differentiable outputs."""
     from tpu_sparse.utils.tree import tree_map, tree_norm, tree_sub
 
     xs = tree_map(lax.stop_gradient, x)
@@ -332,7 +183,7 @@ def _callable_solve_explicit_T(method: str, opts: tuple, A_fn: Callable,
 
     ``lax.custom_linear_solve`` derives the adjoint matvec by transposing
     the forward matvec's jaxpr — which fails when A_fn contains an
-    untransposable op (a Pallas kernel, a host callback). Supplying
+    untransposable op (a host callback, a foreign-function call). Supplying
     ``A_transpose`` sidesteps transposition entirely: backward runs ONE
     adjoint solve ``Aᴴ v = x̄`` with the given matvec (the reference's own
     contract: re-supply Aᵀ, torch_sparse_linalg.py:1238-1248). Gradients
@@ -414,7 +265,7 @@ def fgmres_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     """Flexible GMRES with implicit-diff adjoint (adjoint on Aᴴ, no M).
 
     A_transpose: explicit adjoint matvec for matrix-free A whose forward
-    matvec cannot be jaxpr-transposed (Pallas kernels, host callbacks).
+    matvec cannot be jaxpr-transposed (host callbacks, foreign calls).
     """
     opts = (("tol", tol), ("atol", atol), ("restart", restart),
             ("maxiter", maxiter))
@@ -426,7 +277,7 @@ def bicgstab_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     """BiCGStab with implicit-diff adjoint (adjoint solve on Aᴴ).
 
     A_transpose: explicit adjoint matvec for matrix-free A whose forward
-    matvec cannot be jaxpr-transposed (Pallas kernels, host callbacks);
+    matvec cannot be jaxpr-transposed (host callbacks, foreign calls);
     see _callable_solve_explicit_T.
     """
     opts = (("tol", tol), ("atol", atol), ("maxiter", maxiter))
@@ -439,7 +290,7 @@ def gmres_diff(A, b, x0=None, *, tol: float = 1e-5, atol: float = 0.0,
     """GMRES with implicit-diff adjoint (adjoint solve on Aᴴ).
 
     A_transpose: explicit adjoint matvec for matrix-free A whose forward
-    matvec cannot be jaxpr-transposed (Pallas kernels, host callbacks).
+    matvec cannot be jaxpr-transposed (host callbacks, foreign calls).
     """
     opts = (("tol", tol), ("atol", atol), ("restart", restart),
             ("maxiter", maxiter), ("solve_method", solve_method))

@@ -1,11 +1,9 @@
 """Global configuration for tpu_sparse.
 
 The reference library defaults to float64 everywhere
-(/root/reference/src/pytorch_sparse_solver/module_a/torch_sparse_linalg.py:57-58).
-On TPU, float64 is emulated (no native f64 VPU/MXU path), so we keep the
-*numerical contract* configurable: tests and CPU runs use x64 for parity with
-the reference tolerances; TPU benchmarks default to float32 which is the
-hardware-native speed-of-light dtype.
+(module_a/torch_sparse_linalg.py:57-58). Here the *numerical contract* is
+configurable: tests use x64 for parity with the reference tolerances, and
+float32 halves the bytes a memory-bound solve streams.
 """
 
 from __future__ import annotations
@@ -39,7 +37,7 @@ class SolveOptions:
     """Options shared by the iterative solvers.
 
     Mirrors the reference's keyword surface (tol/atol/maxiter/M,
-    torch_sparse_linalg.py:1019-1088) plus TPU-specific knobs.
+    torch_sparse_linalg.py:1019-1088) plus GMRES knobs.
     """
 
     tol: float = 1e-5

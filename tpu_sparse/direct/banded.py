@@ -1,9 +1,9 @@
-"""Banded direct solvers (TPU-native replacement for the cuDSS backend).
+"""Banded direct solvers (replacement for the cuDSS backend).
 
 The reference's Module C is `torch.sparse.spsolve` → cuDSS sparse LU
 (cudss_solver.py:176-252); its actual test/bench coverage is tridiagonal and
-small-Poisson systems (test_module_c.py:96-179). On TPU there is no vendor
-direct solver, so we provide (SURVEY.md §7 stage 8):
+small-Poisson systems (test_module_c.py:96-179). Here (SURVEY.md §7
+stage 8):
 
 * `thomas_solve` — tridiagonal LU (Thomas algorithm) as a `lax.scan`;
   O(n) work, numerically stable for the diagonally-dominant/SPD systems it
@@ -12,6 +12,8 @@ direct solver, so we provide (SURVEY.md §7 stage 8):
   rows with a (w+1, 2w+1) sliding elimination window; correct for
   diagonally-dominant / SPD bands (documented limitation — pivoting would
   break the static band structure).
+* `pcr_solve` / `block_pcr_solve` — log-depth cyclic reduction for large
+  tridiagonal / banded systems, where the scans' per-row steps dominate.
 * `dense_solve` — XLA dense LU for small or unstructured systems.
 
 All run fully on device with static shapes.
@@ -73,7 +75,7 @@ def pcr_solve(A: DIA, b: jax.Array) -> jax.Array:
 
     log2(n) fully-vectorized elimination passes (each combines every row
     with its ±2^k neighbors) instead of the Thomas algorithm's n sequential
-    scan steps — the TPU-native direct solve for large tridiagonal systems.
+    scan steps — the direct solve for large tridiagonal systems.
     Stable for diagonally-dominant/SPD systems (same class as
     thomas_solve).
     """
@@ -104,42 +106,6 @@ def pcr_solve(A: DIA, b: jax.Array) -> jax.Array:
         c = beta * shift(c, k)
     safe_d = jnp.where(d != 0, d, jnp.ones((), d.dtype))
     return rhs / safe_d
-
-
-def _gj_solve_batched(D: jax.Array, B: jax.Array) -> jax.Array:
-    """Batched Gauss-Jordan solve of D @ X = B without pivoting.
-
-    D: (m, s, s), B: (m, s, t). Pure jnp ops — unlike jnp.linalg.solve this
-    has no LAPACK custom-call, so it runs in f64 on TPU (the TPU compiler
-    implements LU custom-calls for f32 only). No pivoting: stable for the
-    diagonally-dominant / SPD blocks this module is documented for (same
-    contract as banded_lu_solve).
-    """
-    s = D.shape[-1]
-    aug = jnp.concatenate([D, B], axis=-1)  # (m, s, s+t)
-
-    def step(j, aug):
-        pivot = aug[:, j, j][:, None]
-        safe = jnp.where(pivot != 0, pivot, jnp.ones((), aug.dtype))
-        row = aug[:, j, :] / safe                      # (m, s+t)
-        col = aug[:, :, j]                             # (m, s)
-        col = col.at[:, j].set(jnp.zeros((), aug.dtype))
-        aug = aug - col[:, :, None] * row[:, None, :]
-        return aug.at[:, j, :].set(row)
-
-    if s <= 16:  # unroll small pivot loops
-        for j in range(s):
-            aug = step(j, aug)
-    else:
-        aug = lax.fori_loop(0, s, step, aug)
-    return aug[:, :, s:]
-
-
-def _bsolve(D: jax.Array, B: jax.Array) -> jax.Array:
-    """Batched small solve, TPU-safe for every dtype."""
-    if jax.default_backend() == "tpu":
-        return _gj_solve_batched(D, B)
-    return jnp.linalg.solve(D, B)
 
 
 def _band_blocks(A: DIA, s: int):
@@ -174,6 +140,11 @@ def _band_blocks(A: DIA, s: int):
     return D, L, U, m, N
 
 
+def _mm(X, Y):
+    """Batched block product at full f32/f64 precision (no TF32)."""
+    return jnp.matmul(X, Y, precision=lax.Precision.HIGHEST)
+
+
 def block_pcr_solve(A: DIA, b: jax.Array,
                     block_size: int | None = None) -> jax.Array:
     """Banded solve by block parallel cyclic reduction.
@@ -182,9 +153,9 @@ def block_pcr_solve(A: DIA, b: jax.Array,
     with block size s >= w; ceil(log2(m)) fully-batched elimination passes
     (each couples every block row with its +-2^k neighbors through
     D^{-1}-scaled products) replace the banded LU's n sequential scan
-    steps. All the work is (m, s, s) batched matmuls — MXU-shaped — at
-    O(n s^2 log m) FLOPs vs the scan's O(n w^2) sequential ones: the
-    classic TPU latency-for-FLOPs trade. Stable for block
+    steps. All the work is (m, s, s) batched solves and matmuls at
+    O(n s^2 log m) FLOPs vs the scan's O(n w^2) sequential ones: a
+    latency-for-FLOPs trade. Stable for block
     diagonally-dominant / SPD systems (the same class banded_lu_solve is
     documented for; cyclic reduction preserves block diagonal dominance).
 
@@ -212,15 +183,15 @@ def block_pcr_solve(A: DIA, b: jax.Array,
     for sidx in range(steps):
         k = 1 << sidx
         # D^{-1}-scaled couplings of every block row, batched.
-        sol = _bsolve(D, jnp.concatenate([L, U, r], axis=-1))
+        sol = jnp.linalg.solve(D, jnp.concatenate([L, U, r], axis=-1))
         DL, DU, Dr = sol[..., :s], sol[..., s:2 * s], sol[..., 2 * s:]
         DL_m, DU_m, Dr_m = shift(DL, -k), shift(DU, -k), shift(Dr, -k)
         DL_p, DU_p, Dr_p = shift(DL, k), shift(DU, k), shift(Dr, k)
-        D = D - L @ DU_m - U @ DL_p
-        r = r - L @ Dr_m - U @ Dr_p
-        L = -(L @ DL_m)
-        U = -(U @ DU_p)
-    x = _bsolve(D, r)
+        D = D - _mm(L, DU_m) - _mm(U, DL_p)
+        r = r - _mm(L, Dr_m) - _mm(U, Dr_p)
+        L = -_mm(L, DL_m)
+        U = -_mm(U, DU_p)
+    x = jnp.linalg.solve(D, r)
     return x.reshape(-1)[:n]
 
 
@@ -311,30 +282,6 @@ def banded_lu_solve(A: DIA, b: jax.Array) -> jax.Array:
 
 
 def dense_solve(A, b: jax.Array) -> jax.Array:
-    """Dense LU solve for small or unstructured systems.
-
-    The TPU compiler implements LU custom-calls for f32 only, so on TPU a
-    float64 solve runs as f32 LU + fixed-count iterative refinement in f64
-    residual arithmetic — a TPU-native mixed-precision direct solve that
-    recovers ~f64 accuracy for reasonably conditioned systems.
-    """
+    """Dense LU solve (XLA / cuSOLVER) for small or unstructured systems."""
     Ad = A.todense() if hasattr(A, "todense") else jnp.asarray(A)
-    on_tpu = jax.default_backend() == "tpu"
-    if not on_tpu or Ad.dtype != jnp.float64:
-        return jnp.linalg.solve(Ad, b)
-
-    import jax.scipy.linalg as jsl
-
-    lu, piv = jsl.lu_factor(Ad.astype(jnp.float32))
-
-    def solve32(r):
-        return jsl.lu_solve((lu, piv), r.astype(jnp.float32)).astype(
-            jnp.float64)
-
-    x = solve32(b)
-
-    def refine(_, x):
-        r = b - jnp.dot(Ad, x, precision=jax.lax.Precision.HIGHEST)
-        return x + solve32(r)
-
-    return lax.fori_loop(0, 40, refine, x)
+    return jnp.linalg.solve(Ad, b)

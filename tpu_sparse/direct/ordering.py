@@ -4,7 +4,7 @@ Nested dissection by recursive BFS bisection: split the graph at the
 median of a pseudo-peripheral breadth-first order, take the boundary of
 the first half as the separator, recurse on the halves, and emit parts
 in post-order (left, right, separator). For mesh-like graphs (any
-PDE/FVM/FEM matrix) this yields the classic ND property the TPU solve
+PDE/FVM/FEM matrix) this yields the classic ND property the device solve
 needs: the elimination DAG of the resulting LU factor has depth ~tree
 height instead of ~n/block, so a level-scheduled triangular solve runs
 in tens of dependent steps (direct/supernodal.py).
@@ -91,8 +91,8 @@ def aligned_row_map(part_sizes, block: int):
     ``block // 2`` rows, then the run is emitted padded to a multiple of
     ``block``. Alignment is what keeps independent parts out of shared
     blocks — a block spanning two leaves would serialize every leaf
-    through the block dependency DAG (measured r5: depth 1021 unaligned
-    vs 43 aligned on the 512x512 Poisson factor).
+    through the block dependency DAG (depth 1021 unaligned vs 43 aligned
+    on the 512x512 Poisson factor).
 
     Returns ``(row_map, n_pad)`` with ``row_map[i]`` the padded slot of
     ND row ``i``; slots not hit are identity padding.

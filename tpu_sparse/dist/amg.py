@@ -1,8 +1,7 @@
 """Distributed AMG: row-sharded hierarchy over a device mesh.
 
-Round-1 gap: distributed AMG-PCG replicated the whole hierarchy on every
-device, so level storage did not scale past one chip's HBM. Here every
-level is row-sharded:
+Replicating the whole hierarchy on every device would keep level storage
+from scaling past one device's memory. Here every level is row-sharded:
 
 * level matrices convert host-side to **CWELL** (sparse/cwell.py), whose
   row-block-regular arrays shard evenly along the block axis — the sparse

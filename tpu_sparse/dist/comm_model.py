@@ -1,18 +1,12 @@
-"""Measured communication-volume model for distributed SpMV/Krylov.
+"""Communication volumes of distributed SpMV/Krylov programs, counted
+from their compiled HLO.
 
-Wall-clock "weak-scaling efficiency" on a virtual CPU mesh is noise (N
-virtual devices time-share a few host cores), so this module measures the
-thing that IS exact there: the communication structure. The compiled HLO
-of a distributed program names every collective with its per-shard shape;
-we count them — total, and inside while-loop bodies (= per solver
-iteration) — and combine the measured byte volumes with a published
-hardware model (TPU v5e HBM / ICI) into a modeled weak-scaling efficiency
-for real multi-chip topologies.
-
-This replaces the reference-free part of the north-star metric
-(BASELINE.md: weak-scaling nnz/s efficiency >= 0.7 from 1 chip to >= 2
-hosts on a 27-point 3-D Poisson system with >100M nnz): the collective
-counts/bytes are measured facts; only the link speeds are modeled.
+Wall-clock scaling on a virtual CPU mesh is noise (N virtual devices
+time-share a few host cores), so this module measures the thing that IS
+exact there and platform-free: the communication structure. The compiled
+HLO of a distributed program names every collective with its per-shard
+shape; we count them — total, and inside while-loop bodies (= per solver
+iteration). Times of the collectives come only from runs on real cards.
 """
 
 from __future__ import annotations
@@ -137,81 +131,3 @@ def measure_collectives(fn: Callable, *args, **kwargs) -> CollectiveStats:
     jitted = fn if hasattr(fn, "lower") else jax.jit(fn)
     compiled = jitted.lower(*args, **kwargs).compile()
     return hlo_collective_stats(compiled.as_text())
-
-
-# -- hardware model ---------------------------------------------------------
-
-
-@dataclasses.dataclass
-class HardwareModel:
-    """TPU v5e defaults (public numbers; see jax-ml.github.io/scaling-book):
-    one-way ICI bandwidth ~45 GB/s per link, 1-D ring uses 2 links; HBM
-    ~820 GB/s; per-hop ICI latency ~1 us. mesh_dims models the physical
-    torus for reduction-latency hops (a 4x4 v5e slice reduces over two
-    axes of 4, not one ring of 16)."""
-
-    hbm_gbs: float = 820.0
-    ici_link_gbs: float = 45.0
-    ici_links: int = 2            # links usable by the 1-D ring layout
-    hop_latency_us: float = 1.0
-
-    @property
-    def ici_gbs(self) -> float:
-        return self.ici_link_gbs * self.ici_links
-
-
-def _reduction_hops(n_dev: int, mesh_dims: Optional[tuple]) -> int:
-    """Ring all-reduce hop count: 2(N-1) on one ring; on a multi-axis
-    torus the reduction runs per axis: sum 2(d-1)."""
-    if not mesh_dims:
-        return 2 * (n_dev - 1)
-    return sum(2 * (d - 1) for d in mesh_dims)
-
-
-def comm_time_per_iteration(stats: CollectiveStats, n_dev: int,
-                            hw: HardwareModel = HardwareModel(),
-                            mesh_dims: Optional[tuple] = None) -> float:
-    """Seconds of wire time per solver iteration implied by the measured
-    per-iteration collectives at mesh size n_dev (ring algorithms)."""
-    ici = hw.ici_gbs * 1e9
-    lat = hw.hop_latency_us * 1e-6
-    t = 0.0
-    for op in stats.per_iteration:
-        if op.kind == "collective-permute":
-            t += op.bytes / ici + lat  # one hop
-        elif op.kind == "all-gather":
-            # op.bytes is the full gathered size; ring wire share/device
-            t += op.bytes * (n_dev - 1) / n_dev / ici \
-                + (n_dev - 1) * lat
-        elif op.kind == "all-reduce":
-            hops = _reduction_hops(n_dev, mesh_dims)
-            t += 2.0 * op.bytes * (n_dev - 1) / n_dev / ici + hops * lat
-        elif op.kind == "reduce-scatter":
-            t += op.bytes * (n_dev - 1) / n_dev / ici + (n_dev - 1) * lat
-        elif op.kind == "all-to-all":
-            t += op.bytes * (n_dev - 1) / n_dev / ici + (n_dev - 1) * lat
-    return t
-
-
-def modeled_weak_scaling_efficiency(
-        stats: CollectiveStats, n_dev: int, local_hbm_bytes: float,
-        hw: HardwareModel = HardwareModel(),
-        mesh_dims: Optional[tuple] = None,
-        overlap: float = 0.0) -> float:
-    """Weak-scaling efficiency = t_compute / (t_compute + exposed comm).
-
-    t_compute is the per-device HBM-bound time (local matrix + vector
-    traffic); comm is the measured per-iteration collective volume timed
-    on the hardware model. overlap in [0,1] is the fraction of comm hidden
-    behind compute (0 = fully exposed, conservative)."""
-    t_comp = local_hbm_bytes / (hw.hbm_gbs * 1e9)
-    t_comm = comm_time_per_iteration(stats, n_dev, hw, mesh_dims)
-    exposed = max(0.0, t_comm * (1.0 - overlap))
-    return t_comp / (t_comp + exposed)
-
-
-def spmv_local_hbm_bytes(nnz_local: int, rows_local: int,
-                         dtype_bytes: int = 4) -> float:
-    """HBM traffic of one local stencil SpMV: matrix data + read x +
-    write y (+ read halo-extended x ~ x)."""
-    return dtype_bytes * (nnz_local + 3 * rows_local)

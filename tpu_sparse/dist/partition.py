@@ -116,7 +116,7 @@ def shard_general(A, mesh: Mesh):
 
 def shard_general_planned(A, mesh: Mesh):
     """Row-shard a general matrix AND build its halo-exchange plan from
-    the pre-shard host pack (VERDICT r4 #2).
+    the pre-shard host pack.
 
     Unlike ``dist.spmv.plan_cwell_halo`` (which fetches pack metadata
     from an already-sharded matrix and therefore only works when every

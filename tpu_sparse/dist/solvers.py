@@ -68,8 +68,7 @@ def _shard_and_resolve(A, mesh: Mesh, mode: str):
     derives it identically; see partition.shard_general_planned),
     falling back to the all_gather SpMV when the partition has no column
     locality. The shard+pack+plan is cached per (matrix content, mesh,
-    mode) — repeated solves on the same operand pay zero host repacking
-    (ADVICE r4 #4)."""
+    mode) — repeated solves on the same operand pay zero host repacking."""
     if not isinstance(A, DIA):
         from tpu_sparse.dist.partition import shard_general_planned
 
@@ -111,7 +110,7 @@ def _matvec_builder(A_sh, mesh: Mesh, mode: str) -> Callable:
         return make_allgather_spmv(A_sh, mesh)
     from tpu_sparse.kernels import reference as kref
 
-    return lambda x: kref.dia_spmv_padded(A_sh, x)
+    return lambda x: kref.dia_spmv(A_sh, x)
 
 
 def _as_pytree_m(M):

@@ -3,15 +3,16 @@
 Each device owns a contiguous block of rows of a DIA matrix plus the
 matching slice of x. One SpMV:
 
-  1. neighbor halo strips of width = bandwidth move over ICI via
+  1. neighbor halo strips of width = bandwidth move between devices via
      `lax.ppermute` (left and right concurrently — both directions of the
      ring are used),
-  2. the local stencil SpMV runs on the VPU over [halo_l | x_local | halo_r],
+  2. the local stencil SpMV runs over [halo_l | x_local | halo_r],
   3. no reduction is needed (row partitioning ⇒ each output row is local).
 
 XLA's latency-hiding scheduler overlaps the two ppermutes with the start of
-the local compute on the interior rows. This is the TPU-native replacement
-for a NCCL halo exchange (SURVEY.md §2.3).
+the local compute on the interior rows. XLA lowers the ppermutes to NCCL
+on the GPU; this replaces a hand-written NCCL halo exchange
+(SURVEY.md §2.3).
 """
 
 from __future__ import annotations
@@ -24,13 +25,7 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax>=0.4.35 moved shard_map out of experimental
-    from jax import shard_map as _shard_map_mod  # type: ignore
-
-    shard_map = _shard_map_mod.shard_map if hasattr(
-        _shard_map_mod, "shard_map") else _shard_map_mod
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
+from jax import shard_map
 
 from tpu_sparse.dist.mesh import ROW_AXIS
 from tpu_sparse.sparse.containers import DIA
@@ -126,7 +121,7 @@ def halo_dia_spmv(A: DIA, x: jax.Array, mesh: Mesh) -> jax.Array:
 
 @jax.tree_util.register_pytree_node_class
 class HaloCWELL:
-    """A row-sharded CWELL plus its halo-exchange plan (VERDICT r3 #5).
+    """A row-sharded CWELL plus its halo-exchange plan.
 
     ``W``'s srow metadata is pre-shifted into each device's LOCAL frame
     ``[own_start - wl, own_end + wr)`` so the local kernel indexes the
@@ -287,9 +282,8 @@ def make_cwell_halo_spmv(H: "HaloCWELL",
 def make_cwell_allgather_spmv(W, mesh: Mesh) -> Callable[[jax.Array],
                                                          jax.Array]:
     """Distributed SpMV for GENERAL-structure matrices: each device owns a
-    contiguous run of CWELL row blocks, all-gathers x over ICI, and runs
-    the local column-window kernel (Pallas on TPU, XLA reference
-    elsewhere). No bandwidth/stencil assumption — this is the distributed
+    contiguous run of CWELL row blocks, all-gathers x, and runs the local
+    column-window SpMV. No bandwidth/stencil assumption — this is the distributed
     counterpart of the cuSPARSE general-format capability (SURVEY.md §2.2).
 
     ``W`` must already be row-sharded (dist.partition.shard_general):

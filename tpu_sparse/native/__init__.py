@@ -11,7 +11,6 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import tempfile
 from typing import Optional, Tuple
 
 import numpy as np
@@ -22,9 +21,12 @@ _tried = False
 
 
 def _cache_dir() -> str:
+    """Build directory: ``TPU_SPARSE_NATIVE_CACHE`` if set, else the
+    git-ignored ``<checkout>/.native_build``."""
+    from tpu_sparse.utils.compile_cache import CHECKOUT
+
     d = os.environ.get("TPU_SPARSE_NATIVE_CACHE",
-                       os.path.join(tempfile.gettempdir(),
-                                    "tpu_sparse_native"))
+                       os.path.join(CHECKOUT, ".native_build"))
     os.makedirs(d, exist_ok=True)
     return d
 
@@ -36,11 +38,14 @@ def _build() -> Optional[str]:
     so_path = os.path.join(_cache_dir(), f"amg_setup_{tag}.so")
     if os.path.exists(so_path):
         return so_path
+    # per-process temporary name: concurrent first builds (test workers)
+    # must not write one file; os.replace publishes atomically
+    tmp = f"{so_path}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
-           _SRC, "-o", so_path + ".tmp"]
+           _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        os.replace(so_path + ".tmp", so_path)
+        os.replace(tmp, so_path)
         return so_path
     except (subprocess.SubprocessError, OSError, FileNotFoundError):
         return None

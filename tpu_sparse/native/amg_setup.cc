@@ -1,9 +1,9 @@
 // Native AMG setup kernels (host side).
 //
-// TPU-native replacement for the *native* setup phase the reference gets
+// Replacement for the *native* setup phase the reference gets
 // from the AMGX C++ library (torch_amgx.py:140 solver.setup): strength-of-
 // connection + greedy aggregation and the Galerkin RAP coarse-operator
-// product. The solve phase runs on the TPU; this setup phase is a host
+// product. The solve phase runs on the device; this setup phase is a host
 // graph algorithm with data-dependent shapes, so it is implemented in C++
 // (deterministic, single-pass, no Python/scipy in the loop) and reached
 // through a ctypes binding (tpu_sparse/native/__init__.py).

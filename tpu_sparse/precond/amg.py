@@ -1,11 +1,11 @@
-"""Aggregation algebraic multigrid (TPU-native replacement for AMGX).
+"""Aggregation algebraic multigrid (replacement for AMGX).
 
 Capability parity target: the reference's Module B AMG configuration
 (torch_amgx.py:47-99) — AGGREGATION coarsening with SIZE_4 selector,
 JACOBI_L1 smoother with 0 pre- / 3 post-sweeps, ≤50 levels, deterministic
 setup — not AMGX's full feature matrix (SURVEY.md §7 stage 6).
 
-TPU-first split:
+Split:
 
 * **Setup phase on host** (numpy/scipy): strength-of-connection graph,
   greedy size-4 aggregation, tentative piecewise-constant prolongator,
@@ -117,12 +117,8 @@ def _aggregate(S: sp.csr_matrix, target_size: int = 4) -> np.ndarray:
 @jax.tree_util.register_pytree_node_class
 class TentativeP:
     """Tentative (unsmoothed) aggregation prolongator — exactly one entry
-    per row, so ``P x = vals · x[agg]`` is a pure gather. The CSR form of
-    this operator cannot fill CWELL lanes (1 nnz/row → fill ~0.01), so
-    format promotion would fall back to the XLA segment-sum SpMV, which
-    measured ~63 ms per application at n=4.1M (r4); the gather runs at
-    vector-op cost. The restriction side (R = Pᵀ) has dense 8-entry rows
-    and packs fine as CWELL, so only P gets the special case."""
+    per row, so ``P x = vals · x[agg]`` is a pure gather with no
+    segment-sum; the restriction side (R = Pᵀ) stays a CSR operator."""
 
     def __init__(self, vals: jax.Array, agg: jax.Array, shape):
         self.vals = vals          # (n,) entry values (1.0 for tentative)
@@ -149,7 +145,7 @@ def _apply_P(P, v: jax.Array) -> jax.Array:
 class AMGLevel(NamedTuple):
     """One multigrid level (a pytree: all fields are containers/arrays)."""
 
-    A: Any            # system matrix: DIA/CWELL[Seg]/CSR on this level
+    A: Any            # system matrix: the caller's container (finest) or CSR
     P: Any            # prolongator (TentativeP or a sparse container;
     #                   None on the coarsest level)
     R: Optional[CSR]  # restriction = Pᵀ (sparse container)
@@ -159,9 +155,8 @@ class AMGLevel(NamedTuple):
 class AMGHierarchy(NamedTuple):
     levels: Tuple[AMGLevel, ...]
     # Dense pseudo-inverse of the coarsest operator, precomputed on host.
-    # A matmul is the only TPU-universal dense solve (f64 LU is not
-    # implemented by the TPU compiler), and pinv also handles the singular
-    # coarse matrices arising from pure-Neumann problems.
+    # The coarse solve is then one matmul per cycle, and pinv also handles
+    # the singular coarse matrices arising from pure-Neumann problems.
     coarse_inv: jax.Array
 
     @property
@@ -202,61 +197,14 @@ def _smooth_prolongator(A_sp: sp.csr_matrix,
     return P
 
 
-_DENSE_LEVEL_MAX = 3072
-
-
 def _pack_level_op(S_sp: sp.csr_matrix, np_dt):
-    """Host scipy CSR → the best device container for the solve phase.
-
-    On TPU the hierarchy operators are promoted (DIA/BELL/CWELL[Seg])
-    via ``to_tpu_operator`` so every V-cycle SpMV runs a Pallas kernel —
-    a CSR level would fall to the XLA segment-sum path, which measured
-    ~1.1 s/V-cycle at the 110M-nnz scale (r4) against ~5 ms packed. The
-    analysis/packing runs on host (CPU backend) and ships once; CPU runs
-    keep plain CSR (reference kernels are fine there)."""
-    if jax.default_backend() != "tpu":
-        return csr_from_arrays(S_sp.data.astype(np_dt, copy=False),
-                               S_sp.indices, S_sp.indptr, S_sp.shape)
-    # Tiny coarse-level operators become DENSE on TPU: below this size
-    # the V-cycle cost is per-op kernel/grid latency, not arithmetic —
-    # a dense (m, n) jnp.dot is ONE MXU op (r4: the ~11-level tail of
-    # small CWELL kernels contributed ~5 ms of the ~10 ms cycle).
-    if max(S_sp.shape) <= _DENSE_LEVEL_MAX:
-        return jnp.asarray(S_sp.toarray().astype(np_dt, copy=False))
-    from tpu_sparse.sparse.optimize import to_tpu_operator
-
-    cpu0 = jax.devices("cpu")[0]
-    with jax.default_device(cpu0):
-        # Hierarchy operators (R, coarse A) are low-fill by construction
-        # (tentative R rows hold one aggregate's fine nodes), so the
-        # generic 0.25 lane-fill bar would reject them — but even
-        # eighth-fill CWELL measured ~30x faster than the segment-sum
-        # CSR path they would otherwise run (r4: 0.92 ms vs 29-35 ms at
-        # 4.1M nnz). Slot inflation at the relaxed bar stays bounded
-        # (≤ ~25x nnz) and level operators are small next to the fine
-        # matrix.
-        op = to_tpu_operator(csr_from_arrays(
-            S_sp.data.astype(np_dt, copy=False), S_sp.indices,
-            S_sp.indptr, S_sp.shape), min_cwell_fill=0.04)
-    return jax.device_put(op, jax.devices()[0])
+    """Host scipy CSR → device CSR for the solve phase."""
+    return csr_from_arrays(S_sp.data.astype(np_dt, copy=False),
+                           S_sp.indices, S_sp.indptr, S_sp.shape)
 
 
 def _pack_tentative_p(P_sp: sp.csr_matrix, np_dt):
-    """Tentative P (1 nnz/row) for the device. On TPU: CWELL, packed
-    DIRECTLY (bypassing to_tpu_operator's fill threshold — a 1-nnz-row
-    matrix fills ~0.125 of the lanes, yet the Pallas kernel measured
-    0.92 ms vs 29.3 ms for the x[agg] XLA gather at n=4.1M, r4); falls
-    back to the TentativeP gather off-TPU (cheap there) or when the
-    pack is rejected (e.g. too many planes)."""
-    if jax.default_backend() == "tpu":
-        try:
-            op = _pack_level_op(P_sp, np_dt)
-            # _pack_level_op segments wide P (m past the VMEM x cap) into
-            # CWELLSeg; only a genuine CSR fallback loses to the gather
-            if not isinstance(op, CSR):
-                return op
-        except Exception:
-            pass
+    """Tentative P (1 nnz/row) for the device: the x[agg] gather form."""
     return TentativeP(
         jnp.asarray(P_sp.data.astype(np_dt, copy=False)),
         jnp.asarray(P_sp.indices.astype(np.int32, copy=False)),
@@ -283,12 +231,12 @@ def amg_setup(A, *, theta: float = 0.08, target_size: int = 4,
 
     if use_native is None:
         use_native = _native.available()
-    # remote-runtime staging: build every device array on the CPU backend
-    # and move the finished hierarchy in one batched transfer — per-leaf
-    # transfers each pay the remote RTT (r5: 81 s of the 110M-nnz setup
-    # was transfer round trips, not graph work). jax.devices() ignores
-    # the default_device context, so the inner call must be told it is
-    # already staged rather than re-checking the platform.
+    # staging: build every device array on the CPU backend and move the
+    # finished hierarchy in one batched transfer instead of one transfer
+    # per leaf. Whether this still pays on the GPU is not measured
+    # (ROADMAP.md). jax.devices() ignores the default_device context, so
+    # the inner call must be told it is already staged rather than
+    # re-checking the platform.
     dev = jax.devices()[0]
     if dev.platform != "cpu" and not _staged:
         from tpu_sparse.utils.transfer import batched_device_put
@@ -324,8 +272,7 @@ def amg_setup(A, *, theta: float = 0.08, target_size: int = 4,
         # aggressive (pairwise^2-style) coarsening: re-aggregate the
         # tentative coarse graph and compose, multiplying the coarsening
         # ratio per level (~4 -> ~16). Cuts the hierarchy depth roughly
-        # in half — the V-cycle's small-level op-latency tail was ~5 ms
-        # of the ~10 ms cycle at 110M nnz (r4 VERDICT #6).
+        # in half, and with it the V-cycle's tail of small-level ops.
         for _ in range(aggressive):
             if nc <= coarse_size * 4:
                 break
@@ -406,7 +353,7 @@ def _chebyshev_smooth(A, dinv, x, b, degree: int, lam_max: float,
     """Chebyshev polynomial smoother on the D⁻¹A spectrum interval
     [lam_max/lam_ratio, lam_max].
 
-    TPU-friendly alternative to stationary Jacobi: the optimal-polynomial
+    An alternative to stationary Jacobi: the optimal-polynomial
     recurrence needs **no inner products** (pure SpMV + axpy), smooths the
     upper spectrum much faster per SpMV, and its coefficients are static.
     AMGX offers the same trade (CHEBYSHEV smoother) beyond the reference's

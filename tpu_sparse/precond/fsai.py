@@ -1,13 +1,13 @@
 """FSAI — factorized sparse approximate inverse preconditioner.
 
-The TPU-native member of the IC(0)/ILU(0) family from SURVEY.md §7
+The parallel member of the IC(0)/ILU(0) family from SURVEY.md §7
 stage 6 for *general* SPD matrices: an incomplete Cholesky needs two
 sparse triangular solves per application — O(n) dependent steps, hostile
-to the VPU (the DIA-only `ilu0_preconditioner` in precond/poly.py pays
+to a wide vector machine (the DIA-only `ilu0_preconditioner` in precond/poly.py pays
 exactly that scan cost). FSAI instead builds an explicit sparse
 G ≈ L⁻¹ (A ≈ LLᵀ) on the lower-triangular pattern of A (optionally of
 A², "FSAI(2)"), so M = GᵀG ≈ A⁻¹ and every application is two SpMVs
-through the same Pallas/XLA kernels the solvers already use — fully
+through the same SpMV kernels the solvers already use — fully
 parallel, no data-dependent recursion, and it rides jit/vmap like any
 container. M is SPD by construction, so plain CG (not FCG) is safe.
 
@@ -137,8 +137,8 @@ def fsai_preconditioner(A, *, pattern_power: int = 1,
                         optimize: bool = True) -> Partial:
     """M = GᵀG ≈ A⁻¹ (SPD) as a jit-safe ``Partial``.
 
-    ``optimize=True`` promotes G/Gᵀ through ``to_tpu_operator`` so the two
-    SpMVs per application run the Pallas fast paths on TPU.
+    ``optimize=True`` promotes G/Gᵀ through ``to_tpu_operator`` (format
+    choice: DIA/CWELL/BELL/CSR) for the two SpMVs per application.
     """
     G, Gt = fsai_setup(A, pattern_power=pattern_power)
     if optimize:

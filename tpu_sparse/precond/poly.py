@@ -5,13 +5,13 @@ Completes the preconditioner family from SURVEY.md §7 stage 6
 
 * `chebyshev_preconditioner` — degree-k Chebyshev polynomial approximation
   of A⁻¹ on the L1-scaled spectrum. Reduction-free (pure SpMV+axpy), the
-  most TPU-friendly general preconditioner.
+  most parallel general preconditioner.
 * `neumann_preconditioner` — truncated Neumann series (I - D⁻¹A)ᵏ; cheaper
   setup, weaker smoothing.
 * `ilu0_preconditioner` — ILU(0) for DIA stencil matrices: incomplete LU
   restricted to the stored diagonals, factorized with one `lax.scan` and
   applied with two substitution scans. The substitutions are sequential
-  (O(n) scan steps) — on TPU prefer Chebyshev/AMG for large n; ILU(0) is
+  (O(n) scan steps) — prefer Chebyshev/AMG for large n; ILU(0) is
   provided for capability parity and small/medium systems.
 """
 

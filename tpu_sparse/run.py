@@ -50,6 +50,9 @@ def run_benchmarks(quick: bool = False, sizes: Optional[List[int]] = None,
     )
     import jax
 
+    from tpu_sparse.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     jax.config.update("jax_enable_x64", True)
     if quick:
         config = BenchmarkConfig(

@@ -1,9 +1,9 @@
 """Batched multi-RHS solves.
 
 The reference's batched path is a sequential Python loop
-(`batch_cudss_spsolve`, cudss_solver.py:297-324). TPU-native version: vmap
-the whole solver over the RHS batch — one compiled program, all solves run
-as one fused batch on device (SpMV batches into SpMM on the MXU/VPU).
+(`batch_cudss_spsolve`, cudss_solver.py:297-324). Here: vmap the whole
+solver over the RHS batch — one compiled program, all solves run as one
+fused batch on device (SpMV batches into SpMM).
 """
 
 from __future__ import annotations
@@ -21,9 +21,7 @@ def _batch(solver_full, A, B, X0=None, **kw):
     """Solve A X = B column-wise; B is (n, k) or a batch of pytrees.
 
     Sparse A is wrapped in `batch_safe_matvec` so the vmapped matvec
-    lowers to one SpMM instead of Pallas's generic kernel-batching rule
-    (unvalidated on TPU for the manual-DMA kernels, and slower than a
-    real SpMM where it does lower)."""
+    lowers to one SpMM, which reads the matrix once for all columns."""
     from tpu_sparse.kernels import batch_safe_matvec
     from tpu_sparse.sparse.containers import is_sparse
 

@@ -3,13 +3,13 @@
 `batch_cg` (solvers/batched.py) vmaps k independent solves; block CG
 (O'Leary 1980) instead iterates one block: each iteration applies A to an
 (n, k) direction block — one matrix pass feeds every RHS — and the k
-per-column dot products become k×k Gram matmuls, which is exactly the
-shape the MXU wants. Columns also converge in the union of the k Krylov
+per-column dot products become k×k Gram matmuls (one matrix product
+instead of k reductions). Columns also converge in the union of the k Krylov
 spaces, typically in fewer iterations than any single-vector solve.
 
 The reference has no block solver at all (its batched path is a
-sequential Python loop, cudss_solver.py:297-324); this is a TPU-native
-capability extension.
+sequential Python loop, cudss_solver.py:297-324); this is a capability
+extension.
 
 Stabilization (this is the part plain O'Leary block CG gets wrong in low
 precision): the direction block is re-orthonormalized by modified
@@ -32,13 +32,6 @@ import jax.numpy as jnp
 from jax import lax
 
 from tpu_sparse.sparse.containers import is_sparse
-
-
-def _gj_matrix_solve(G: jax.Array, C: jax.Array) -> jax.Array:
-    """Solve G Y = C (matrix RHS) by Gauss-Jordan — TPU-safe in f64."""
-    from tpu_sparse.direct.banded import _gj_solve_batched
-
-    return _gj_solve_batched(G[None], C[None])[0]
 
 
 def _as_matmat(A):
@@ -134,7 +127,7 @@ def block_cg(A, B: jax.Array, X0: Optional[jax.Array] = None, *,
         S = dead_fix(gram(Pm, Q))
         # Galerkin step: alpha = (PᵀAP)⁻¹ Pᵀ(R·act); masked columns get
         # zero alpha columns, so converged x_j / r_j freeze.
-        alpha = _gj_matrix_solve(S, gram(Pm, R * act[None, :]))
+        alpha = jnp.linalg.solve(S, gram(Pm, R * act[None, :]))
         X = X + jnp.dot(Pm, alpha, precision=lax.Precision.HIGHEST)
         R = R - jnp.dot(Q, alpha, precision=lax.Precision.HIGHEST)
         # periodic residual replacement: the block recurrence residual
@@ -148,7 +141,7 @@ def block_cg(A, B: jax.Array, X0: Optional[jax.Array] = None, *,
         Z = M_mm(R) * act_new[None, :]
         # A-orthogonalize the new directions against the previous block,
         # then re-orthonormalize (the stabilization step).
-        beta = _gj_matrix_solve(S, gram(Q, Z))
+        beta = jnp.linalg.solve(S, gram(Q, Z))
         P = _mgs_block(Z - jnp.dot(Pm, beta,
                                    precision=lax.Precision.HIGHEST))
         return _BlockCGState(X, R, P, rs, k + 1)

@@ -6,8 +6,7 @@ requires a fixed M and converges on the M-residual; FGMRES applies M on the
 right (w = A·M·v), stores the preconditioned vectors Z_k = M(V_k), and
 updates x from Z — so M may change every iteration (inner iterative
 solves, nonsymmetric AMG cycles) and the Givens recurrence tracks the TRUE
-residual. Saad (1993). One extra basis of VMEM-resident vectors is the
-cost.
+residual. Saad (1993). One extra stored basis of vectors is the cost.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Krylov solvers: CG, BiCGStab, GMRES(restart) — TPU-native.
+"""Krylov solvers: CG, BiCGStab, GMRES(restart).
 
 Capability parity with the reference's Module A
 (module_a/torch_sparse_linalg.py):
@@ -10,8 +10,8 @@ Capability parity with the reference's Module A
                 :431-493, Arnoldi :331-388, ICGS :284-328, Givens :508-518)
 
 Re-designed for XLA: every solver is a single `lax.while_loop` body with
-static shapes, so the whole iteration fuses into one compiled program on TPU
-(one SpMV + a few VPU axpys + psum-able dots per iteration). Operands are
+static shapes, so the whole iteration fuses into one compiled program
+(one SpMV + a few axpys + psum-able dots per iteration). Operands are
 arbitrary pytrees; `A` and `M` may be sparse containers, dense matrices, or
 matrix-free callables.
 
@@ -313,11 +313,10 @@ def _project_on_columns(V, x):
     """h[j] = <V_j, x> for every stacked basis column j.
 
     V leaves have a LEADING basis axis of size (restart+1): basis columns
-    are contiguous in HBM, so prefix-blocked sweeps and per-column
-    reads/writes touch exactly the bytes they use. (With the trailing
-    layout every BK-column block read paid the full padded basis width
-    per cache line — measured 3.5 ms/Arnoldi step at 110M nnz vs ~1.4
-    bandwidth-bound.) (Reference `_project_on_columns`,
+    are contiguous in device memory, so prefix-blocked sweeps and
+    per-column reads/writes touch exactly the bytes they use. (With the
+    trailing layout every BK-column block read pays the full padded basis
+    width per cache line.) (Reference `_project_on_columns`,
     torch_sparse_linalg.py:276-281.)
     """
     def leaf_proj(Vl, xl):
@@ -346,12 +345,12 @@ _PROJ_BLOCK = 8  # basis columns per blocked-projection step
 
 def _project_on_prefix(V, x, kplus):
     """h[j] = <V_j, x> for the filled prefix j < kplus (later columns are
-    structurally zero). Blocked dynamic-prefix sweep: HBM traffic scales
-    with the FILLED basis, not the restart width — at 110M nnz the full
-    einsum made every Arnoldi step pay 4 x restart x 16 MB of CGS2
-    traffic regardless of k (r4 VERDICT #4). Requires the leading basis
-    axis padded to a multiple of _PROJ_BLOCK (the cycle drivers do);
-    leading-axis blocks are contiguous in HBM."""
+    structurally zero). Blocked dynamic-prefix sweep: memory traffic
+    scales with the FILLED basis, not the restart width — the full einsum
+    makes every Arnoldi step read the whole basis twice (CGS2) regardless
+    of k. Requires the leading basis axis padded to a multiple of
+    _PROJ_BLOCK (the cycle drivers do); leading-axis blocks are
+    contiguous in memory."""
     leaves_V = tree_leaves(V)
     leaves_x = tree_leaves(x)
     m1p = leaves_V[0].shape[0]
@@ -459,9 +458,8 @@ def _kth_arnoldi_iteration(k, A, M, V, H):
 def _gauss_jordan_solve(G, c):
     """Solve G y = c by Gauss-Jordan elimination without pivoting.
 
-    Used for the (restart × restart) SPD normal-equation system. Built from
-    elementary ops only — unlike LU/Cholesky custom-calls, this lowers on
-    TPU for every dtype including f64."""
+    Used for the small (restart × restart) SPD normal-equation system,
+    built from elementary ops inside the jitted cycle."""
     m = G.shape[0]
     aug = jnp.concatenate([G, c[:, None]], axis=1)
 
@@ -478,7 +476,7 @@ def _gauss_jordan_solve(G, c):
 
 
 def _upper_triangular_solve(R, c):
-    """Back-substitution for upper-triangular R (TPU-safe for all dtypes)."""
+    """Back-substitution for upper-triangular R (zero pivots give 0)."""
     m = R.shape[0]
 
     def body(k, y):
@@ -492,17 +490,23 @@ def _upper_triangular_solve(R, c):
     return lax.fori_loop(0, m, body, jnp.zeros_like(c))
 
 
+def _matmul(a, b):
+    """Full-precision product: no TF32 on the GPU (an f32 Gram matrix in
+    TF32 squares an already-truncated condition number)."""
+    return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
+
+
 def _lstsq_normal(H_kxk1, beta, restart):
     """Solve min_y || beta*e1 - H^T y || via normal equations
     (reference `_lstsq`, :391-428). H_kxk1 is (restart, restart+1) holding
     H^T; the system matrix is Hm = H_kxk1^T (restart+1, restart)."""
     Hm = H_kxk1.T  # (restart+1, restart)
     rhs = jnp.zeros((restart + 1,), Hm.dtype).at[0].set(beta)
-    G = Hm.conj().T @ Hm  # (restart, restart)
+    G = _matmul(Hm.conj().T, Hm)  # (restart, restart)
     # Tiny jitter guards exact-breakdown (all-zero) columns.
     eps = jnp.finfo(_real_dtype(Hm.dtype)).eps
     G = G + jnp.eye(restart, dtype=G.dtype) * (eps * jnp.trace(G).real)
-    c = Hm.conj().T @ rhs
+    c = _matmul(Hm.conj().T, rhs)
     return _gauss_jordan_solve(G, c)
 
 
@@ -513,12 +517,11 @@ def _lstsq_qr(H_kxk1, beta, restart):
     equations square cond(H), so for cond(A) past ~1/sqrt(eps_f32) ≈ 4e3
     the f32 Gram matrix carries no information and the cycle's true
     residual stalls far above the ε·cond(A) floor a backward-stable
-    solve attains (observed round 2: f32 defect-correction sweeps on the
-    cond≈1e5 1-D Laplacian collapsed to 0.9× reduction per sweep; with
-    QR they recover ~6e-3). XLA lowers f32 QR natively on TPU; 16-bit
-    inputs are computed in f32. f64 keeps the Gauss-Jordan normal
-    equations (emulated-f64 QR does not lower everywhere, and
-    eps_f64·cond² is fine through cond ~ 1e7)."""
+    solve attains (f32 defect-correction sweeps on the cond≈1e5 1-D
+    Laplacian collapsed to 0.9× reduction per sweep; with QR they
+    recover ~6e-3). 16-bit inputs are computed in f32. f64 keeps the
+    Gauss-Jordan normal equations (eps_f64·cond² is fine through
+    cond ~ 1e7)."""
     Hm = H_kxk1.T  # (restart+1, restart)
     compute_dtype = Hm.dtype
     if not jnp.issubdtype(compute_dtype, jnp.complexfloating) \
@@ -528,7 +531,7 @@ def _lstsq_qr(H_kxk1, beta, restart):
     rhs = jnp.zeros((restart + 1,), compute_dtype).at[0].set(
         beta.astype(compute_dtype))
     Q, R = jnp.linalg.qr(Hc, mode="reduced")
-    c = Q.conj().T @ rhs
+    c = _matmul(Q.conj().T, rhs)
     # _upper_triangular_solve guards zero pivots (exact-breakdown columns
     # give R[i, i] == 0 and harmlessly yield y[i] == 0)
     return _upper_triangular_solve(R, c).astype(H_kxk1.dtype)
@@ -710,7 +713,7 @@ def gmres(A: Operator, b: Any, x0: Optional[Any] = None, *, tol: float = 1e-5,
           solve_method: str = "batched") -> Tuple[Any, jax.Array]:
     """GMRES with restarts (reference `gmres`, torch_sparse_linalg.py:641-784).
 
-    solve_method: 'batched' (one least-squares per cycle, TPU-friendly
+    solve_method: 'batched' (one least-squares per cycle, the
     default) or 'incremental' (Givens QR with in-cycle early exit).
     """
     x, info, _, _ = gmres_full(A, b, x0, tol=tol, atol=atol, restart=restart,

@@ -1,14 +1,14 @@
 """Mixed-precision iterative refinement (defect correction).
 
-TPU-native answer to the reference's fp64-everywhere policy
-(torch_sparse_linalg.py:57-58): f64 is emulated on TPU (~10-40× slower than
-the native f32 VPU path), so solving everything in f64 wastes the hardware.
-Instead:
+An alternative to the reference's fp64-everywhere policy
+(torch_sparse_linalg.py:57-58): the inner Krylov sweeps stream an f32
+operator, half the bytes of the f64 one, and f64 accuracy is recovered by
+defect correction:
 
     x = 0  (f64)
     repeat:
-        r  = b - A x                (f64 — one emulated SpMV per sweep)
-        d  = solve(A₃₂, r₃₂)        (f32 Krylov solve, native speed)
+        r  = b - A x                (f64 — one SpMV per sweep)
+        d  = solve(A₃₂, r₃₂)        (f32 Krylov solve)
         x += d
     until ‖r‖ ≤ max(tol·‖b‖, atol)
 
@@ -74,9 +74,8 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
     """Defect-correction refinement around an f32 inner Krylov solve.
 
     The sweep loop is a static Python unroll rather than a while_loop:
-    nesting the inner solver's while_loop (which may contain a Pallas
-    kernel) inside an outer while_loop trips an infinite recursion in
-    tracing, and the unroll also lets converged sweeps short-circuit —
+    nesting the inner solver's while_loop inside an outer while_loop
+    trips an infinite recursion in tracing, and the unroll also lets converged sweeps short-circuit —
     a converged sweep feeds the inner solver an all-zero rhs, whose
     residual check exits at iteration 0.
 
@@ -90,14 +89,6 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
     """
     A_fn = as_matvec(A)
     outer_dtype = _first_dtype(b)
-    A_rescue = A
-    df_op = _make_df_operator(A, outer_dtype)
-    if df_op is not None:
-        # f64 DIA on TPU: outer residuals and the rescue sweep run the
-        # double-f32 compensated Pallas SpMV (~3.8× the XLA-emulated f64
-        # path, ~2^-45 accuracy — pallas_spmv.ExtendedStencilOperatorDF).
-        A_fn = df_op.matvec64
-        A_rescue = df_op.matvec64
     A32 = _cast_operator(A, inner_dtype, outer_dtype)
     M32 = None
     if M is not None:
@@ -122,9 +113,6 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
     thresh = jnp.maximum(tol * b_norm, atol)
     out_dtype = _first_dtype(b)
 
-    _inner = _make_inner(inner_solver, A32, M32, inner_tol, inner_maxiter,
-                         inner_kwargs)
-
     x = tree_zeros_like(b) if x0 is None else x0
     res_norm = tree_norm(tree_sub(b, A_fn(x)))
     inner_iters = jnp.array(0, jnp.int32)
@@ -136,7 +124,9 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
         rhs32 = _cast_tree(
             tree_map(lambda leaf: jnp.where(done, 0.0, leaf), r),
             inner_dtype)
-        d32, _, it, _ = _inner(rhs32)
+        d32, _, it, _ = inner_solver(A32, rhs32, None, tol=inner_tol,
+                                     maxiter=inner_maxiter, M=M32,
+                                     **inner_kwargs)
         # Accept the sweep only if it actually reduced the true residual
         # (an inner f32 breakdown can return a finite but useless update);
         # a rejected sweep marks the solve stalled and stops refining.
@@ -160,7 +150,7 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
     r = tree_sub(b, A_fn(x))
     rhs = tree_map(
         lambda leaf: jnp.where(failed, leaf, jnp.zeros_like(leaf)), r)
-    d, _, it_f, _ = inner_solver(A_rescue, rhs, None, tol=0.0, atol=thresh,
+    d, _, it_f, _ = inner_solver(A, rhs, None, tol=0.0, atol=thresh,
                                  maxiter=rescue_maxiter, M=M, **inner_kwargs)
     x_new = tree_add(x, d)
     res_new = tree_norm(tree_sub(b, A_fn(x_new)))
@@ -176,73 +166,6 @@ def refined_solve(inner_solver: Callable, A, b, x0: Optional[Any] = None, *,
 
 def _first_dtype(tree):
     return jax.tree_util.tree_leaves(tree)[0].dtype
-
-
-def _make_df_operator(A, outer_dtype):
-    """Double-f32 extended operator for the f64 outer system, or None."""
-    from tpu_sparse import kernels as _kernels
-    from tpu_sparse.sparse.containers import DIA
-
-    if not (isinstance(A, DIA)
-            and _kernels._PALLAS_ENABLED
-            and jax.default_backend() == "tpu"
-            and outer_dtype == jnp.float64
-            and A.data.dtype == jnp.float64):
-        return None
-    from tpu_sparse.kernels.pallas_spmv import make_extended_operator_f64
-
-    return make_extended_operator_f64(A)
-
-
-def _make_inner(inner_solver, A32, M32, inner_tol, maxiter, inner_kwargs):
-    """Build the per-sweep inner solve closure. On TPU, f32 DIA systems
-    (with no/diagonal preconditioner) run through the halo-extended Pallas
-    operator so every inner iteration uses the pad-free SpMV fast path
-    (round-1 gap: mixed-precision inner solves ran the pad-per-call
-    kernel)."""
-    from tpu_sparse import kernels as _kernels
-    from tpu_sparse.sparse.containers import DIA
-
-    def _diag_partial(M):
-        from jax.tree_util import Partial
-
-        from tpu_sparse.precond.jacobi import _apply_diag
-
-        return M is None or (isinstance(M, Partial)
-                             and M.func is _apply_diag)
-
-    use_ext = (
-        isinstance(A32, DIA)
-        and _kernels._PALLAS_ENABLED
-        and jax.default_backend() == "tpu"
-        and A32.data.dtype in (jnp.float32, jnp.bfloat16)
-        and A32.shape[0] == A32.shape[1]
-        and bool(A32.offsets)
-        and max(abs(o) for o in A32.offsets) < A32.shape[0]
-        and _diag_partial(M32)
-    )
-    if use_ext:
-        from jax.tree_util import Partial
-
-        from tpu_sparse.kernels.pallas_spmv import ExtendedStencilOperator
-        from tpu_sparse.precond.jacobi import _apply_diag
-
-        op32 = ExtendedStencilOperator(A32)
-        M32e = None if M32 is None else Partial(
-            _apply_diag, op32.extend_diag(M32.args[0]))
-
-        def _inner(rhs):
-            out = inner_solver(op32, op32.extend(rhs), None, tol=inner_tol,
-                               maxiter=maxiter, M=M32e, **inner_kwargs)
-            return (op32.extract(out[0]),) + tuple(out[1:])
-
-        return _inner
-
-    def _inner(rhs):
-        return inner_solver(A32, rhs, None, tol=inner_tol, maxiter=maxiter,
-                            M=M32, **inner_kwargs)
-
-    return _inner
 
 
 def cg_refined(A, b, x0=None, *, tol: float = 1e-8, atol: float = 0.0,

@@ -1,10 +1,9 @@
-"""BELL — block-ELL format: the TPU-regular form of BSR.
+"""BELL — block-ELL format: the regular form of BSR.
 
 Each block row stores a fixed number L of (bs, bs) dense blocks (padded
 with zero blocks at block-column 0), which makes the SpMV/SpMM loop fully
-regular: no per-row variable lengths, only dynamic *slices* into the dense
-operand (supported efficiently by Mosaic), never gathers. Blocks feed the
-MXU in the Pallas SpMM kernel.
+regular: no per-row variable lengths, one batched dense block product
+(`kernels/reference.py` bell_spmv/bell_spmm).
 
 This is the "first-class BSR kernel" capability of the north star
 (SURVEY.md §2.2): general sparse matrices with block structure convert

@@ -1,15 +1,16 @@
 """Sparse matrix containers as registered JAX pytrees.
 
 Capability parity target: the reference's torch.sparse COO/CSR tensors and
-format converters (utils/matrix_utils.py:12-140). Re-designed TPU-first:
+format converters (utils/matrix_utils.py:12-140). Re-designed for XLA:
 
 * ``COO`` / ``CSR`` — general formats; SpMV lowers to an XLA segment-sum
-  (scatter-add), which is the portable general path on TPU.
+  (scatter-add), the portable general path.
 * ``DIA`` — diagonal (banded/stencil) storage with **static** offsets. All the
   reference's benchmark matrices (tridiagonal, 5-point 2-D Poisson, 27-point
   3-D Poisson) are stencil matrices; DIA SpMV is pure shifted vector math with
-  zero gathers, i.e. the HBM speed-of-light format on TPU.
-* ``BSR`` — block sparse rows with dense ``(bs, bs)`` blocks that feed the MXU.
+  zero gathers: the format that streams the fewest bytes per nonzero.
+* ``BSR`` — block sparse rows with dense ``(bs, bs)`` blocks (batched dense
+  block products).
 
 All containers are pytrees: array attributes are leaves (so they can be
 jitted, sharded, and differentiated), ``shape``/offsets/block-size are static
@@ -183,7 +184,7 @@ class DIA:
       shape: static (n_rows, n_cols).
 
     SpMV is ``y[i] = sum_d data[d, i] * x[i + offsets[d]]`` — static shifts
-    only, no gathers; this is the TPU fast path.
+    only, no gathers.
     """
 
     def __init__(self, data, offsets: Sequence[int], shape):
@@ -296,7 +297,7 @@ class BSR:
       indptr: (n_block_rows + 1,) int32.
       shape: static (n_rows, n_cols); must be divisible by bs.
 
-    Each block is a dense tile; SpMV/SpMM contract blocks on the MXU.
+    Each block is a dense tile; SpMV/SpMM contract blocks as batched dots.
     """
 
     def __init__(self, data, indices, indptr, shape):

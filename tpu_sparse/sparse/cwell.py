@@ -1,29 +1,30 @@
-"""CWELL — column-window ELL: the TPU-regular form of general CSR.
+"""CWELL — column-window ELL: a lane-regular form of general CSR.
 
-This is the general-structure (unstructured CSR/COO) SpMV format the
-north star requires beyond stencils (SURVEY.md §2.2: the cuSPARSE
-capability row; reference reaches it through torch.sparse —
-``/root/reference/src/pytorch_sparse_solver/solver.py:365``,
-``utils/matrix_utils.py:279``). The reference needs no special format
-because cuSPARSE has hardware gather/scatter; the TPU VPU has neither, so
-the format itself must make every memory access regular:
+A general-structure (unstructured CSR/COO) SpMV format (SURVEY.md §2.2:
+the cuSPARSE capability row; the reference reaches it through
+torch.sparse — solver.py:365, utils/matrix_utils.py:279). It was built
+for a vector unit without a general gather, so the format itself makes
+every memory access regular:
 
 * Rows are grouped into **blocks of 128** (the lane dimension) — output
   row ``i`` of a block lives in lane ``i % 128``, so the result of a block
   is one dense 128-vector: no scatter anywhere.
 * Each nonzero is assigned to a **column window** of 256 consecutive
-  columns aligned to 128 (two sublane rows of the x operand reshaped to
+  columns aligned to 128 (two rows of the x operand reshaped to
   ``(m/128, 128)``). Within a (block, window) pair, a row's nonzeros get
   consecutive **planes**; plane ``s`` of a block is a dense ``(128,)``
-  value vector + ``(128,)`` local-index vector, so gathering x for one
-  plane is a single same-shape lane gather (``take_along_axis(axis=1)``)
-  from a 256-wide VMEM window — the only gather primitive Mosaic
-  supports.
+  value vector + ``(128,)`` local-index vector into a 256-wide x window.
 * Planes are padded to a common count ``S`` per matrix; ``fill`` =
   nnz / total slots measures the padding overhead. Matrices with column
   locality (any PDE/graph matrix, ideally RCM-ordered) pack at 50-95%
-  fill; fully random sparsity packs poorly and should stay on the XLA
-  segment-sum path (the dispatcher checks ``fill``).
+  fill; fully random sparsity packs poorly and should stay on the CSR
+  segment-sum path (the format choice checks ``fill``).
+
+SpMV/SpMM run as the XLA gather in ``kernels/reference.py``. Whether the
+format still pays against CSR on the GPU is an open measurement
+(ROADMAP.md); the pack-size limits below are kept as they were so the
+format choices of `sparse/optimize.py` and the direct solvers' packs
+stay unchanged.
 
 Arrays:
   vals:  (n_blocks, S, 128) dtype — slot values (0 in padding slots)
@@ -46,6 +47,13 @@ from tpu_sparse.sparse.containers import CSR, SPARSE_TYPES
 LW = 128        # lanes per row block
 WIN = 256       # window width in columns (two x2d rows)
 
+# Pack-size limits. They were tuned for an on-chip-memory SpMV kernel that
+# this package no longer has, and are kept unchanged so that the format
+# choices (sparse/optimize.py, direct/sparse_lu.py, direct/supernodal.py)
+# stay as they were; they are to be re-chosen by measurement on the GPU.
+X_COLS_LIMIT = 1536 * 1024          # widest x (columns) a monolithic pack takes
+PACK_BYTES_BUDGET = 96 * 1024 * 1024  # bound on 4 * 8 * planes * LW * 4 bytes
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -56,7 +64,7 @@ class CWELL:
     """Column-window ELL matrix (see module docstring)."""
 
     def __init__(self, vals, idx2, srow, shape, nnz=None, fill=None,
-                 group=1, unroll_cap=None):
+                 group=1):
         self.vals = vals
         self.idx2 = idx2
         self.srow = srow
@@ -64,15 +72,8 @@ class CWELL:
         self._nnz = None if nnz is None else int(nnz)
         self.fill = None if fill is None else float(fill)
         # group quantum Q: every aligned run of Q planes shares one window
-        # row (csr_to_cwell(group=Q)) — the Pallas kernel then does
-        # 2*(8/Q) dynamic x-row reads per 8-plane group instead of 16.
+        # row (csr_to_cwell(group=Q))
         self.group = int(group) if group else 1
-        # compile-lite mode: bound the kernel's unrolled plane-group code
-        # to this many groups (rolled outer loops). Plane-rich packs that
-        # appear in MANY kernels per program (supernodal LU level packs)
-        # set this — full unroll costs ~0.65 s Mosaic compile per group
-        # (measured r5: one 2904-plane pack = 235 s compile).
-        self.unroll_cap = None if unroll_cap is None else int(unroll_cap)
 
     @property
     def grouped(self) -> bool:
@@ -80,14 +81,12 @@ class CWELL:
 
     def tree_flatten(self):
         return (self.vals, self.idx2, self.srow), (
-            self.shape, self._nnz, self.fill, self.group, self.unroll_cap)
+            self.shape, self._nnz, self.fill, self.group)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         return cls(children[0], children[1], children[2], aux[0],
-                   nnz=aux[1], fill=aux[2],
-                   group=aux[3] if len(aux) > 3 else 1,
-                   unroll_cap=aux[4] if len(aux) > 4 else None)
+                   nnz=aux[1], fill=aux[2], group=aux[3])
 
     @property
     def n_blocks(self) -> int:
@@ -109,8 +108,7 @@ class CWELL:
 
     def with_data(self, vals) -> "CWELL":
         return CWELL(vals, self.idx2, self.srow, self.shape,
-                     nnz=self._nnz, fill=self.fill, group=self.group,
-                     unroll_cap=self.unroll_cap)
+                     nnz=self._nnz, fill=self.fill, group=self.group)
 
     # -- conversions --------------------------------------------------------
 
@@ -171,20 +169,11 @@ def _cols_sorted(indptr: np.ndarray, cols: np.ndarray) -> bool:
     return not bad.any()
 
 
-# Default plane-group quantum for AUTO-pack sites (to_tpu_operator, router
-# repack, distributed sharding, bench). Measured on chip
-# (bench_tools/tpu_session2.py, r3; docs/performance.md): sharing one
-# window row per aligned Q-plane run halves the dynamic x-row copies and
-# Q=2 won on every tested matrix — 27-pt stencil CSR SpMV 40.5 -> 56.1
-# Gnnz/s, SpMM k=32 10.2 -> 16.3 Gnnz/s; random-1% n=16384 SpMV
-# 19.0 -> 22.0 (Q=4 best there, 24.4). Explicit group= overrides.
 # Sentinel: pick the group quantum per matrix at pack time. High-fill
-# (column-local) packs keep Q=2 — the r3 sweep winner on stencil-like
-# structure (27-pt: 56.1 Gnnz/s at Q=2). Low-fill packs (poor locality,
-# e.g. random sparsity) take Q=4: halving the dynamic window reads beats
-# the extra plane padding there (r4 measured rand-1% n=16384: 21.3 Gnnz/s
-# at Q=2 → 27.3 at Q=4; degree-sorted SELL-σ permutations were a measured
-# dead end — see docs/performance.md r4).
+# (column-local) packs keep Q=2; low-fill packs (poor locality, e.g.
+# random sparsity) take Q=4 unless its plane inflation is too large. The
+# rule was tuned for a kernel this package no longer has and has not been
+# re-timed on the GPU (ROADMAP.md).
 AUTO_GROUP = "auto"
 _AUTO_FILL_Q2 = 0.5
 _AUTO_TRIAL_NNZ_CAP = 1 << 25   # ~33M nnz: bound on the double-pack trial
@@ -200,12 +189,8 @@ def csr_to_cwell(A: CSR, *, plane_pad: int = 8,
     the block. Runs in O(nnz log nnz).
 
     group=Q (Q in {2, 4, 8}) pads every (row-block, window) plane run to
-    a multiple of Q so each aligned run of Q planes shares one window row;
-    the Pallas kernel then performs 2*(8/Q) dynamic x-row reads per
-    8-plane group instead of 16 (the measured copy bound, ROADMAP perf
-    item 2) at the cost of padding planes. Profitable when the plane
-    inflation S_Q/S_1 stays under roughly 1/(1 - c + c/Q) for copy share
-    c~0.36 (e.g. ~1.2x at Q=2, ~1.37x at Q=4).
+    a multiple of Q so each aligned run of Q planes shares one window row,
+    at the cost of padding planes.
     """
     if group == AUTO_GROUP:
         W2 = csr_to_cwell(A, plane_pad=plane_pad, group=2)
@@ -213,21 +198,18 @@ def csr_to_cwell(A: CSR, *, plane_pad: int = 8,
             return W2
         # the Q=4 trial is a SECOND full pack — packing is
         # memory-bandwidth bound on fresh allocations, so cap the trial
-        # to packs where the extra host pass stays cheap (the measured
-        # Q=4 win is a solve-time property; huge low-fill packs keep the
-        # Q=2 result rather than doubling their setup cost)
+        # to packs where the extra host pass stays cheap (huge low-fill
+        # packs keep the Q=2 result rather than doubling their setup cost)
         if A.indices.shape[0] > _AUTO_TRIAL_NNZ_CAP:
             return W2
         W4 = csr_to_cwell(A, plane_pad=plane_pad, group=4)
-        # keep Q=4 unless its plane inflation eats the halved-read win
-        # (profitability bound ~1.37x, module docstring)
+        # keep Q=4 unless its plane inflation exceeds ~1.35x
         return W4 if W4.planes <= W2.planes * 1.35 else W2
     if group not in (1, 2, 4, 8):
         raise ValueError("group quantum must be 1, 2, 4, or 8")
     if group > 1 and plane_pad % 8 != 0:
-        # S % 8 == 0 (and hence S % group == 0) is what the grouped
-        # kernels' run loops rely on; an unaligned plane_pad would
-        # silently drop trailing planes there
+        # S % 8 == 0 (and hence S % group == 0) keeps every aligned run
+        # of Q planes inside the pack
         raise ValueError("grouped packing requires plane_pad % 8 == 0")
     group8 = group > 1  # any quantum pads runs; naming kept for brevity
     indptr = np.asarray(A.indptr, dtype=np.int64)
@@ -250,8 +232,7 @@ def csr_to_cwell(A: CSR, *, plane_pad: int = 8,
     # C++ fast path for large packs: two streaming passes writing each
     # output once vs the numpy pipeline's ~20 nnz-sized intermediates
     # (fresh-page population costs ~6 s/GB on this host).
-    # (group8 packs take the numpy path; extend the C++ pack if the
-    # grouped kernel wins its on-chip A/B.)
+    # (group8 packs take the numpy path.)
     if not group8 and nnz >= (1 << 14) \
             and data.dtype in (np.float32, np.float64) \
             and _cols_sorted(indptr, cols):
@@ -326,9 +307,8 @@ def csr_to_cwell(A: CSR, *, plane_pad: int = 8,
     srow[b_s, plane] = sr
 
     if group8:
-        # every plane of a padded run (padding slots included) must carry
-        # the run's window row so the kernel's per-run srow read is valid
-        # regardless of which plane of the run is populated
+        # every plane of a padded run (padding slots included) carries
+        # the run's window row, whichever plane of the run is populated
         sr_win = np.minimum(w_s[win_first] * 2, rmax).astype(np.int32)
         lens = planes_per_win
         run_start = win_block * S + win_base
@@ -344,14 +324,13 @@ def csr_to_cwell(A: CSR, *, plane_pad: int = 8,
 
 @jax.tree_util.register_pytree_node_class
 class CWELLSeg:
-    """Column-segmented CWELL: general structure beyond the VMEM x cap.
+    """Column-segmented CWELL: general structure wider than
+    ``X_COLS_LIMIT`` columns.
 
-    The Pallas CWELL kernel needs x fully VMEM-resident (~1.5M elements);
-    for wider matrices the columns are split into 256-aligned segments,
-    each packed as its own CWELL against its own x slice, and
-    ``y = Σ_seg W_seg @ x[start : start+width]``. Every segment reuses the
-    unmodified kernel (including the f64 double-f32 and bf16 variants);
-    segments with no nonzeros are dropped.
+    The columns are split into 256-aligned segments, each packed as its
+    own CWELL against its own x slice, and
+    ``y = Σ_seg W_seg @ x[start : start+width]``; segments with no
+    nonzeros are dropped.
     """
 
     def __init__(self, segments, starts, widths, shape, nnz=None,

@@ -5,7 +5,7 @@ Parity target: utils/matrix_utils.py:143-257 in the reference
 north-star 27-point 3-D Poisson system from BASELINE.json and the
 nonsymmetric convection-diffusion matrix used by the BiCGStab/GMRES tests.
 
-All generators build on host in numpy and return both a DIA (TPU fast path)
+All generators build on host in numpy and return both a DIA (stencil fast path)
 and the information needed for CSR/COO via convert; matrices are returned as
 DIA by default since every generated family is a stencil matrix.
 """

@@ -1,20 +1,21 @@
-"""Operator format optimization for TPU execution.
+"""Operator format choice for the device SpMV.
 
 `to_tpu_operator` inspects a general sparse matrix (host-side, once, at
-operator construction) and promotes it to the fastest TPU format:
+operator construction) and promotes it to a structured format:
 
-1. stencil-structured (few distinct diagonals) → DIA (Pallas fast path);
+1. stencil-structured (few distinct diagonals) → DIA (shifted products,
+                                                 no gather);
 2. anything with column locality (fill ≥ threshold after packing,
-   optionally RCM-reordered)                   → CWELL (Pallas windowed
-                                                 lane-gather kernel);
-3. block-structured (dense blocks fill well)   → BELL (MXU block SpMM
-                                                 kernel; SpMV repacks to
-                                                 CWELL);
+   optionally RCM-reordered)                   → CWELL (windowed gather);
+3. block-structured (dense blocks fill well)   → BELL (dense block
+                                                 products);
 4. otherwise                                   → CSR (XLA segment-sum).
 
 This is the user-facing answer to "what replaces cuSPARSE for arbitrary
-matrices": pick the structure the hardware can exploit, fall back to the
-general scatter-add path when there is none.
+matrices": pick the structure the kernels can exploit, fall back to the
+general scatter-add path when there is none. The CWELL and BELL rules
+were tuned for kernels this package no longer has; they are kept until
+the GPU measurement of each format decides them (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def to_tpu_operator(A, *, max_diags: int = 64, block_size: int = 8,
                     min_block_fill: float = 0.35,
                     min_cwell_fill: float = 0.25,
                     verbose: bool = False) -> Union[DIA, BELL, CWELL, CWELLSeg, CSR]:
-    """Promote ``A`` to the best TPU format (host-side analysis)."""
+    """Promote ``A`` to the best structured format (host-side analysis)."""
     if isinstance(A, (DIA, BELL, CWELL, CWELLSeg)):
         return A
     Ac = to_csr(A)
@@ -57,17 +58,13 @@ def to_tpu_operator(A, *, max_diags: int = 64, block_size: int = 8,
             print(f"[to_tpu_operator] DIA with {dia.ndiag} diagonals")
         return dia
 
-    # Past the Pallas kernel's VMEM x cap, a monolithic CWELL can only run
-    # the XLA path — pack column segments instead (each segment's x slice
-    # is VMEM-resident; y sums across segments). Per-segment plane padding
-    # costs some fill, and even half-fill Pallas beats the segment-sum
-    # fallback by orders of magnitude, so the bar is half the usual one.
-    from tpu_sparse.sparse.cwell import csr_to_cwell_segments
+    # Past the pack-size limit on x (sparse/cwell.py), pack column
+    # segments instead (y sums across segments). Per-segment plane padding
+    # costs some fill, so the bar is half the usual one. f64 halves the
+    # cap and the segment width.
+    from tpu_sparse.sparse.cwell import X_COLS_LIMIT, csr_to_cwell_segments
 
-    # Caps mirror kernels.pallas_cwell._X_VMEM_LIMIT; the f64 double-f32
-    # kernel keeps BOTH hi and lo x slices VMEM-resident, so its cap (and
-    # the segment width that satisfies it) is half the f32 one.
-    _X_CAP = 1536 * 1024
+    _X_CAP = X_COLS_LIMIT
     if np.asarray(Ac.data).dtype == np.float64:
         _X_CAP //= 2
         _SEG_COLS = 1 << 19

@@ -1,17 +1,16 @@
 """Timing and profiling utilities.
 
 The reference's observability is ad-hoc wall timing with cuda.synchronize
-(SURVEY.md §5: benchmark.py:238-243, test timings). TPU equivalents here:
+(SURVEY.md §5: benchmark.py:238-243, test timings). Equivalents here:
 
-* `force(tree)` — actually wait for device completion. On remote TPU
-  runtimes `jax.block_until_ready` can return before execution finishes;
-  only a device→host transfer is a reliable fence, so this fetches one
-  scalar per output tree.
+* `force(tree)` — wait for device completion (`jax.block_until_ready`).
 * `wall_time(fn, *args)` — per-call wall time including dispatch, median
   of N.
 * `per_iter_time(op, v)` — per-application cost of a linear operator,
   measured as the slope between two chained `fori_loop` programs so fixed
   dispatch latency cancels out.
+* `copy_bandwidth_gbs()` — the device's copy bandwidth, the yardstick
+  for memory-bound kernels.
 * `trace(path)` — context manager around `jax.profiler` for XProf traces.
 """
 
@@ -27,10 +26,9 @@ import numpy as np
 from jax import lax
 
 
-def force(tree: Any) -> float:
-    """Block until ``tree`` is computed; returns a checksum scalar."""
-    leaf = jax.tree_util.tree_leaves(tree)[0]
-    return float(jnp.sum(jnp.abs(leaf)))
+def force(tree: Any) -> Any:
+    """Block until ``tree`` is computed; returns it."""
+    return jax.block_until_ready(tree)
 
 
 def wall_time(fn: Callable, *args, warmup: int = 2, iters: int = 5) -> float:
@@ -48,12 +46,15 @@ def wall_time(fn: Callable, *args, warmup: int = 2, iters: int = 5) -> float:
 def chain_time(op: Callable, v: Any, K: int, reps: int = 3) -> float:
     """Total wall seconds for K dependent applications of ``op`` in one
     compiled program (min over reps)."""
-    g = jax.jit(lambda x: jnp.sum(lax.fori_loop(0, K, lambda i, y: op(y), x)))
-    float(g(v))
+    # the barrier keeps XLA from unrolling the loop and fusing consecutive
+    # applications (which would read the operands once for several)
+    g = jax.jit(lambda x: lax.fori_loop(
+        0, K, lambda i, y: lax.optimization_barrier(op(y)), x))
+    force(g(v))
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        float(g(v))
+        force(g(v))
         times.append(time.perf_counter() - t0)
     return min(times)
 
@@ -66,8 +67,22 @@ def per_iter_time(op: Callable, v: Any, K1: int = 5, K2: int = 50) -> float:
     return max((t2 - t1) / (K2 - K1), 1e-12)
 
 
+def copy_bandwidth_gbs(n_elems: int = 64 * 1024 * 1024) -> float:
+    """Device copy bandwidth (GB/s) from a chained triad z ← a·z + y over
+    two f32 vectors of ``n_elems``: 3 vectors move per step (read z, read
+    y, write z). The yardstick for memory-bound kernels measured in the
+    same process."""
+    z = jnp.arange(n_elems, dtype=jnp.float32)
+    a = np.float32(1.000001)
+    # y rides in the loop carry: a closed-over y would be a compile-time
+    # constant that XLA may fold instead of reading it
+    dt = per_iter_time(lambda zy: (a * zy[0] + zy[1], zy[1]), (z, z + 1),
+                       K1=5, K2=50)
+    return 3 * z.nbytes / dt / 1e9
+
+
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/tpu_sparse_trace"):
+def trace(log_dir: str):
     """Capture an XProf trace of the enclosed block."""
     jax.profiler.start_trace(log_dir)
     try:
